@@ -1,0 +1,152 @@
+"""The port's kernel wrappers against the JAX package's kernels.
+
+On the CPU each wrapper runs its plain PyTorch version; those are held to
+the JAX kernels run as the JAX tests run them here (Pallas interpret
+mode).  The CUDA kernels themselves are held to the plain versions in
+``test_torch_cuda.py`` (marker ``cuda``), which needs a card.
+
+Tolerances: both sides compute in f32.  quant_matmul sums K=256 products
+in another order (XLA vs PyTorch), ~sqrt(K)*2^-24 relative, so 1e-5 of
+the output scale; paged attention re-associates an online softmax over
+at most 64 keys, well inside 2e-5 (the JAX package's own bound for its
+kernel against its XLA path).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import kvwire as jkv
+from repro.kernels import ops as jops
+from repro.kernels import paged_attention as jpa
+from repro_torch.core import kvwire as tkv
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import quant_matmul as tqm
+
+RNG = np.random.default_rng(1)
+
+
+def _qm_inputs(m, k, n, bits, gs=128):
+    w = RNG.normal(size=(k, n)).astype(np.float32) * k ** -0.5
+    x = RNG.normal(size=(m, k)).astype(np.float32)
+    jq = jops.quantize_weight(jnp.asarray(w), bits, gs)
+    tq = tops.quantize_weight(torch.from_numpy(w), bits, gs)
+    return x, jq, tq
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("m,n", [(5, 40), (1, 130)])
+def test_quant_matmul_plain_matches_pallas_interpret(bits, m, n):
+    x, jq, tq = _qm_inputs(m, 256, n, bits)
+    want = np.asarray(jops.quant_matmul(jnp.asarray(x), jq,
+                                        backend="interpret"))
+    before = tqm.quant_matmul.launches
+    got = tops.quant_matmul(torch.from_numpy(x), tq).numpy()
+    assert tqm.quant_matmul.launches == before   # CPU: no kernel launch
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * scale)
+
+
+def test_quant_matmul_leading_dims_and_group_sizes():
+    x, jq, tq = _qm_inputs(6, 256, 24, 4, gs=64)
+    x3 = x.reshape(2, 3, 256)
+    got = tops.quant_matmul(torch.from_numpy(x3), tq).numpy()
+    want = np.asarray(jops.quant_matmul(jnp.asarray(x3), jq,
+                                        backend="interpret"))
+    assert got.shape == (2, 3, 24)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
+def test_quant_matmul_rejects_ragged_k():
+    w = torch.randn(256, 16)
+    packed, scale, zmin = tops._ref.quantize_weight(w, 4, 128)
+    x = torch.randn(2, 200)
+    with pytest.raises(ValueError, match="group_size"):
+        tqm.quant_matmul(x, packed[:100], scale, zmin, bits=4,
+                         group_size=128)
+
+
+def test_quant_dense_activation_paths_name_roadmap():
+    _, _, tq = _qm_inputs(2, 128, 8, 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.quant_dense(torch.randn(2, 128), tq, a_bits=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.quant_dense(torch.randn(2, 128), tq, a_bits=2, lut=True)
+
+
+def _pa_case(bits, *, lq, b=2, kvh=2, gq=2, d=32, gs=16, ps=4, pps=4):
+    """One paged decode case, as the JAX kernel tests build it: scratch
+    page 0 holds large garbage, slot 0 sits mid-page with table entries
+    past its live pages padded onto scratch, slot 1 at a page boundary."""
+    n_pages = b * pps + 1
+    kf = RNG.normal(size=(n_pages, ps, kvh, d)).astype(np.float32)
+    vf = RNG.normal(size=kf.shape).astype(np.float32)
+    kf[0], vf[0] = 1e4, -1e4
+    q = RNG.normal(size=(b, lq, kvh, gq, d)).astype(np.float32)
+    table = (1 + np.arange(b * pps, dtype=np.int32)).reshape(b, pps)
+    full = pps * ps
+    pos = np.array([full - 2 * ps - 2, full - lq], np.int32)
+    table[0, -1] = 0                               # padded table entry
+    jq = jnp.asarray(q)
+    if bits is None:
+        jk, jv = jnp.asarray(kf), jnp.asarray(vf)
+    else:
+        jk, jv = jkv.quantize_kv(jnp.asarray(kf), bits, gs), \
+            jkv.quantize_kv(jnp.asarray(vf), bits, gs)
+
+    def t(leaf):
+        if isinstance(leaf, dict):
+            return {k: torch.from_numpy(np.asarray(v).copy())
+                    for k, v in leaf.items()}
+        return torch.from_numpy(np.asarray(leaf).copy())
+
+    jargs = (jq, jk, jv, jnp.asarray(table), jnp.asarray(pos))
+    targs = (torch.from_numpy(q), t(jk), t(jv),
+             torch.from_numpy(table).long(), torch.from_numpy(pos).long())
+    return jargs, targs
+
+
+@pytest.mark.parametrize("lq", [1, 3])
+@pytest.mark.parametrize("bits", [None, 8, 4, 2])
+def test_paged_attention_plain_matches_pallas_interpret(bits, lq):
+    jargs, targs = _pa_case(bits, lq=lq)
+    want = np.asarray(jpa.paged_attention(*jargs, interpret=True))
+    before = tpa.paged_attention.launches
+    got = tpa.paged_attention(*targs).numpy()
+    assert tpa.paged_attention.launches == before
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_paged_attention_plain_matches_gather_dequant_path():
+    """The plain version equals the port's unfused decode path."""
+    from repro_torch.models import attention
+    _, (q, k, v, table, pos) = _pa_case(4, lq=3)
+    kk = tkv.dequantize_kv(tkv.gather_pages(k, table), 32)
+    vv = tkv.dequantize_kv(tkv.gather_pages(v, table), 32)
+    np.testing.assert_allclose(
+        tpa.plain(q, k, v, table, pos).numpy(),
+        attention.decode_attention(q, kk, vv, pos).numpy(),
+        rtol=2e-5, atol=2e-5)
+
+
+def test_dequant_selector_validation_matches_jax():
+    for bits in (None, 8, 4, 2, 1):
+        for mode in ("auto", "affine", "lut"):
+            try:
+                want = jpa.dequant_path(bits, mode)
+            except ValueError:
+                with pytest.raises(ValueError):
+                    tpa.dequant_path(bits, mode)
+            else:
+                assert tpa.dequant_path(bits, mode) == want
+    _, targs = _pa_case(8, lq=1)
+    with pytest.raises(ValueError, match="dequant"):
+        tpa.paged_attention(*targs, dequant="nearest")
+    with pytest.raises(ValueError, match="bits <= 4"):
+        tpa.paged_attention(*targs, dequant="lut")
+    _, targs = _pa_case(4, lq=1)
+    a = tpa.paged_attention(*targs, dequant="affine")
+    assert torch.equal(a, tpa.paged_attention(*targs, dequant="lut"))
