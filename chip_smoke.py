@@ -11,6 +11,8 @@ Phases, each printed as one JSON line:
   serve    llama3.2-1b at its published widths (random weights from a
            seed) through the port's Server: lq4w weights, 4-bit paged KV,
            fused attention, bf16; launch counts must match the path
+  profile  torch.profiler over steady decode steps: device busy time per
+           step against the host-clock step (the device's idle share)
   parity   the same requests through the port on the card (kernels) and on
            the CPU (plain versions), f32, 2 layers at full width: greedy
            tokens identical, logits within a stated tolerance
@@ -39,8 +41,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same source
-F32 = 2.0 ** -24                 # unit roundoff of float32
-BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
 SEED = 0
 
 # the main path's geometry (README: serve --scheme lq4w --kv-bits 4
@@ -114,23 +114,6 @@ def phase_build() -> None:
 # phase: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def qm_tolerance(x, w, y_plain):
-    """Elementwise bound on |kernel - plain| for quant_matmul.
-
-    Both sum K products in f32, in different orders; recursive summation
-    errs by at most K*u*sum|x*w| (u = 2^-24), so the two differ by at most
-    2K*u*(|x| @ |w|), plus 2u of it for the dequant (one fused multiply-add
-    in the kernel, a multiply and an add in the plain version).  A bf16
-    output is rounded once on each side, within 2^-8 of the value each,
-    so the two may also differ by 2^-7 of it."""
-    k = x.shape[1]
-    mag = x.abs().to(torch.float32) @ w.abs()
-    tol = (2 * k + 2) * F32 * mag
-    if y_plain.dtype == torch.bfloat16:
-        tol = tol + BF16_ULP * y_plain.abs().to(torch.float32)
-    return tol
-
-
 def check_quant_matmul(dev) -> dict:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ref
@@ -155,7 +138,7 @@ def check_quant_matmul(dev) -> dict:
                                     group_size=gs)
                     torch.cuda.synchronize()
                     wd = ref.dequantize_weight(packed, scale, zmin, bits, gs)
-                    tol = qm_tolerance(x, wd, want)
+                    tol = qm.error_bound(x, wd, want)
                     err = (got.float() - want.float()).abs()
                     ratio = float((err / tol.clamp_min(1e-30)).max())
                     if not bool((err <= tol).all()):
@@ -197,38 +180,6 @@ def paged_case(dev, bits, dtype, lq, gen):
             kvwire.quantize_kv(vf, bits, KV_GROUP), table, pos)
 
 
-def pa_tolerance(q, k_pages, v_pages, table, pos, out_plain):
-    """Bound on |kernel - plain| for paged attention, per slot.
-
-    Scores: both sum D products in f32 in other orders and dequantize with
-    or without a fused multiply-add, so a score differs by at most
-    delta = (2D+2)*u*max|q.k|*D^-0.5.  The output is a convex combination
-    of V rows: a score error delta moves it by at most 2*delta*max|v|, and
-    the online softmax re-associates a sum over n live keys (plus exp and
-    one division), at most (n+8)*u*max|v|.  A bf16 output adds 2^-7 of
-    the value (one rounding on each side)."""
-    from repro_torch.core import kvwire
-    d = q.shape[-1]
-    kk = kvwire.gather_pages(k_pages, table.long())
-    vv = kvwire.gather_pages(v_pages, table.long())
-    if kvwire.is_quant_kv(kk):
-        kk, vv = kvwire.dequantize_kv(kk, d), kvwire.dequantize_kv(vv, d)
-    tols = []
-    for i in range(q.shape[0]):
-        n = int(pos[i]) + q.shape[1]
-        ki, vi = kk[i, :n].float(), vv[i, :n].float()
-        qi = q[i].float()
-        qk = torch.einsum("lkgd,skd->lkgs", qi.abs(), ki.abs()).max()
-        delta = (2 * d + 2) * F32 * float(qk) * d ** -0.5
-        vmax = float(vi.abs().max())
-        tols.append(vmax * (2 * delta + (n + 8) * F32))
-    tol = torch.tensor(tols, device=q.device).view(-1, 1, 1, 1, 1)
-    tol = tol.expand_as(out_plain).clone()
-    if out_plain.dtype == torch.bfloat16:
-        tol += BF16_ULP * out_plain.abs().float()
-    return tol
-
-
 def check_paged_attention(dev) -> dict:
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -240,7 +191,7 @@ def check_paged_attention(dev) -> dict:
                 got = pa.paged_attention(q, kp, vp, table, pos)
                 want = pa.plain(q, kp, vp, table.long(), pos.long())
                 torch.cuda.synchronize()
-                tol = pa_tolerance(q, kp, vp, table, pos, want)
+                tol = pa.error_bound(q, kp, vp, table, pos, want)
                 err = (got.float() - want.float()).abs()
                 ratio = float((err / tol).max())
                 if not bool((err <= tol).all()):
@@ -274,8 +225,9 @@ def phase_kernels(dev) -> dict:
               "paged_attention": check_paged_attention(dev)}
     emit({"phase": "kernels", "checks": checks,
           "tolerance": "elementwise bounds from f32 summation order and "
-                       "bf16 output rounding (see qm_tolerance / "
-                       "pa_tolerance)", "tf32": False})
+                       "bf16 output rounding (error_bound in "
+                       "kernels/quant_matmul.py and "
+                       "kernels/paged_attention.py)", "tf32": False})
     return checks
 
 
@@ -406,6 +358,73 @@ def phase_serve(dev) -> dict:
            "launches": launches, "sample": outs[0][:8]}
     emit(row)
     return {"row": row, "engine": engine, "cfg": cfg}
+
+
+# ---------------------------------------------------------------------------
+# phase: device busy share of steady decode
+# ---------------------------------------------------------------------------
+
+PROFILE_STEPS = 16
+
+
+def _device_busy(prof, steps: int) -> dict:
+    """Union of the device intervals (kernels, copies, sets) a profiler
+    window recorded, with the kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler recorded no device activity")
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us, lo = busy_us + hi - lo, a
+        hi = max(hi, b)
+    busy_us += hi - lo
+    by_name = sorted(((e.key, e.self_device_time_total / 1e3 / steps,
+                       e.count / steps) for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    return {"device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_ops_per_step": len(spans) / steps,
+            "top_device_ms_per_step": [
+                {"name": k[:60], "ms": ms, "per_step": c}
+                for k, ms, c in by_name[:6]]}
+
+
+def phase_profile(serve_out) -> dict:
+    """``torch.profiler`` over PROFILE_STEPS decode steps of the serve
+    phase's engine with every slot busy: the device's busy time per step
+    against the host-clock step, so the device idle share is measured, not
+    inferred.  The window traces CUDA activity only, to disturb the host
+    little; the host step time inside it is printed beside the serve
+    phase's to show what tracing costs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.server import RequestParams, Server
+    engine, cfg = serve_out["engine"], serve_out["cfg"]
+    server = Server(cfg, None, engine.ecfg, engine.pcfg, engine=engine)
+    for p in _prompts(cfg, SLOTS, PROMPT, SEED + 8):
+        server.submit(p, RequestParams(max_new_tokens=PROFILE_STEPS + 8))
+    for _ in range(3):                       # admit and prefill every slot
+        server.step()
+    if len(server.scheduler.active_requests()) != SLOTS:
+        raise AssertionError("profile window needs every slot busy")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            server.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    busy = _device_busy(prof, PROFILE_STEPS)
+    row = {"phase": "profile", "steps": PROFILE_STEPS, "slots": SLOTS,
+           "host_step_ms": wall_ms, "serve_phase_step_ms_p50":
+           serve_out["row"]["decode_step_ms_p50"], **busy,
+           "device_idle_share":
+           1.0 - busy["device_busy_ms_per_step"] / wall_ms}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -587,6 +606,7 @@ def main() -> int:
     phase_build()
     checks = phase_kernels(dev)
     serve_out = phase_serve(dev)
+    phase_profile(serve_out)
     phase_parity(dev)
     timing = phase_timing(serve_out, dev)
     launches = serve_out["row"]["launches"]

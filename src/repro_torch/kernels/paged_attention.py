@@ -23,12 +23,13 @@ import functools
 import torch
 
 from ..core import kvwire
-from . import build
+from . import build, ref
 
-NEG_INF = -1e30
 DEQUANT_MODES = ("auto", "affine", "lut")
 _SMEM_LIMIT = 48 * 1024      # dynamic shared memory without an opt-in
 _DTYPES = (torch.float32, torch.bfloat16)
+F32_U = 2.0 ** -24               # unit roundoff of float32
+BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
 
 
 def dequant_path(bits: int | None, dequant: str = "auto") -> str:
@@ -54,23 +55,44 @@ def _bits(k_pages, d: int) -> int | None:
 def plain(q, k_pages, v_pages, page_table, pos, *, dequant: str = "auto"):
     """The plain PyTorch version: gather every table entry, dequantize to
     f32, attend with the position mask, return in q's dtype."""
-    b, lq, kvh, gq, d = q.shape
+    d = q.shape[-1]
     dequant_path(_bits(k_pages, d), dequant)
     kk = kvwire.gather_pages(k_pages, page_table)
     vv = kvwire.gather_pages(v_pages, page_table)
     if kvwire.is_quant_kv(kk):
         kk, vv = kvwire.dequantize_kv(kk, d), kvwire.dequantize_kv(vv, d)
-    kk, vv = kk.to(torch.float32), vv.to(torch.float32)
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32), kk) \
-        * (d ** -0.5)
-    posb = torch.as_tensor(pos, device=q.device).expand(b)
-    qpos = posb[:, None] + torch.arange(lq, device=q.device)       # (B, Lq)
-    spos = torch.arange(kk.shape[1], device=q.device)
-    valid = spos[None, None, :] <= qpos[..., None]                  # (B,Lq,S)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, vv)
-    return out.to(q.dtype)
+    return ref.masked_attention(q, kk, vv, pos)
+
+
+def error_bound(q, k_pages, v_pages, page_table, pos, out_plain):
+    """Elementwise bound on |kernel - plain|, per slot, given the plain
+    output.
+
+    Scores: both sum D products in f32 in other orders and dequantize with
+    or without a fused multiply-add, so a score differs by at most
+    delta = (2D+2)*u*max|q.k|*D^-0.5 (u = 2^-24).  The output is a convex
+    combination of V rows: a score error delta moves it by at most
+    2*delta*max|v|, and the online softmax re-associates a sum over n live
+    keys (plus exp and one division), at most (n+8)*u*max|v|.  A bf16
+    output adds 2^-7 of the value (one rounding on each side)."""
+    d = q.shape[-1]
+    kk = kvwire.gather_pages(k_pages, page_table.long())
+    vv = kvwire.gather_pages(v_pages, page_table.long())
+    if kvwire.is_quant_kv(kk):
+        kk, vv = kvwire.dequantize_kv(kk, d), kvwire.dequantize_kv(vv, d)
+    tols = []
+    for i in range(q.shape[0]):
+        n = int(pos[i]) + q.shape[1]
+        ki, vi = kk[i, :n].float(), vv[i, :n].float()
+        qk = torch.einsum("lkgd,skd->lkgs", q[i].float().abs(),
+                          ki.abs()).max()
+        delta = (2 * d + 2) * F32_U * float(qk) * d ** -0.5
+        tols.append(float(vi.abs().max()) * (2 * delta + (n + 8) * F32_U))
+    tol = torch.tensor(tols, device=q.device).view(-1, 1, 1, 1, 1)
+    tol = tol.expand_as(out_plain).clone()
+    if out_plain.dtype == torch.bfloat16:
+        tol += BF16_ULP * out_plain.abs().float()
+    return tol
 
 
 @functools.cache

@@ -18,12 +18,31 @@ from . import build
 from . import ref as _ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+F32_U = 2.0 ** -24               # unit roundoff of float32
+BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
 
 
 def plain(x, packed, scale, zmin, *, bits: int, group_size: int):
     """The plain PyTorch version: dequantize W, then one f32 matmul."""
     return _ref.quant_matmul(x, packed, scale, zmin, bits=bits,
                              group_size=group_size)
+
+
+def error_bound(x, w, y_plain):
+    """Elementwise bound on |kernel - plain| at x (M, K) and the
+    dequantized weight ``w`` (K, N), given the plain output.
+
+    Both sum K products in f32, in different orders; recursive summation
+    errs by at most K*u*sum|x*w| (u = 2^-24), so the two differ by at most
+    2K*u*(|x| @ |w|), plus 2u of it for the dequant (one fused multiply-add
+    in the kernel, a multiply and an add in the plain version).  A bf16
+    output is rounded once on each side, within 2^-8 of the value each,
+    so the two may also differ by 2^-7 of it."""
+    k = x.shape[1]
+    tol = (2 * k + 2) * F32_U * (x.abs().to(torch.float32) @ w.abs())
+    if y_plain.dtype == torch.bfloat16:
+        tol = tol + BF16_ULP * y_plain.abs().to(torch.float32)
+    return tol
 
 
 @functools.cache

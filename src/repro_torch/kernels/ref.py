@@ -13,6 +13,8 @@ import torch
 
 from ..core import packing
 
+NEG_INF = -1e30
+
 
 def quantize_weight(w: torch.Tensor, bits: int, group_size: int):
     """f32 (K, N) -> (packed (K/cpb, N), scale (G, N), zmin (G, N)).
@@ -50,3 +52,20 @@ def quant_matmul(x, packed, scale, zmin, *, bits: int, group_size: int):
     """x (M, K) @ dequant(w), summed in f32, returned in x's dtype."""
     w = dequantize_weight(packed, scale, zmin, bits, group_size)
     return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def masked_attention(q, k, v, pos):
+    """GQA attention with the position mask: q (B, Lq, KV, G, D) against
+    k, v (B, S, KV, D).  ``pos`` is a scalar or (B,): query i of slot b sits
+    at ``pos[b] + i`` and sees keys ``<= pos[b] + i`` (``pos`` 0 with S = Lq
+    is causal attention).  Scores and sums in f32, output in q's dtype."""
+    b, lq, _, _, d = q.shape
+    posb = torch.as_tensor(pos, device=q.device).expand(b)
+    qpos = posb[:, None] + torch.arange(lq, device=q.device)       # (B, Lq)
+    valid = torch.arange(k.shape[1], device=q.device) <= qpos[..., None]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
+                     k.to(torch.float32)) * (d ** -0.5)
+    s = torch.where(valid[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
+    return out.to(q.dtype)

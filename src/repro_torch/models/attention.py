@@ -2,10 +2,10 @@
 decode branch (port of ``repro/models/attention.py``, full attention only).
 
 GQA layout: q (B, L, KV, G, D) grouped by kv head; k/v (B, S, KV, D) are
-never repeated.  Prefill attention is plain PyTorch (matmul and masked
-softmax), as the JAX package leaves it to XLA; paged decode goes through
-``kernels/paged_attention.py`` when ``fused`` is set, else through the
-gather -> dequantize -> :func:`decode_attention` path.
+never repeated.  Prefill attention is plain PyTorch, as the JAX package
+leaves it to XLA: :func:`decode_attention` at position 0.  Paged decode
+goes through ``kernels/paged_attention.py`` when ``fused`` is set, else
+through the gather -> dequantize -> :func:`decode_attention` path.
 """
 from __future__ import annotations
 
@@ -13,44 +13,14 @@ import torch
 
 from ..core import kvwire
 from ..kernels import paged_attention as paged_attn
+from ..kernels import ref
 from . import layers
 from .layers import NO_QUANT, QuantPolicy
 
-NEG_INF = -1e30
-
-
-def causal_attention(q, k, v):
-    """Full-sequence causal attention.  q (B, L, KV, G, D); k, v (B, L, KV,
-    D) -> (B, L, KV, G, D) in q's dtype; scores and sums in f32."""
-    d = q.shape[-1]
-    l = q.shape[1]
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
-                     k.to(torch.float32)) * (d ** -0.5)
-    pos = torch.arange(l, device=q.device)
-    allowed = pos[:, None] >= pos[None, :]
-    s = torch.where(allowed, s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-    return out.to(q.dtype)
-
-
-def decode_attention(q, k_cache, v_cache, pos):
-    """q (B, Lq, KV, G, D) against caches (B, S, KV, D); ``pos`` is a scalar
-    or (B,) — query i of slot b sits at ``pos[b] + i`` and sees cache slots
-    ``<= pos[b] + i``.  Sums are in f32 (the caches are read into f32) and
-    the output is in q's dtype."""
-    b, lq, kvh, g, d = q.shape
-    s_len = k_cache.shape[1]
-    spos = torch.arange(s_len, device=q.device)
-    posb = torch.as_tensor(pos, device=q.device).expand(b)
-    qpos = posb[:, None] + torch.arange(lq, device=q.device)       # (B, Lq)
-    valid = spos[None, None, :] <= qpos[..., None]
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
-                     k_cache.to(torch.float32)) * (d ** -0.5)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.to(torch.float32))
-    return out.to(q.dtype)
+# q (B, Lq, KV, G, D) against caches (B, S, KV, D) read into f32; query i
+# of slot b sees cache slots <= pos[b] + i.  The paged kernel's plain
+# version runs the same function.
+decode_attention = ref.masked_attention
 
 
 def attn_init(gen, *, d_model: int, n_heads: int, n_kv: int, head_dim: int,
@@ -133,8 +103,8 @@ def attn_apply(p, x, *, n_heads: int, n_kv: int, head_dim: int,
         else:
             cache["k"][:, :l] = k.to(cache["k"].dtype)
             cache["v"][:, :l] = v.to(cache["v"].dtype)
-        out = causal_attention(q, k, v)
+        out = decode_attention(q, k, v, 0)
     else:
-        out = causal_attention(q, k, v)
+        out = decode_attention(q, k, v, 0)
     out = out.reshape(b, l, n_heads * head_dim)
     return layers.dense_apply(p["wo"], out, policy), cache
