@@ -5,17 +5,22 @@
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc builds of both kernels from src/repro_torch/kernels/csrc
+  build    nvcc builds of the four kernels from src/repro_torch/kernels/csrc
   kernels  each CUDA kernel against its plain PyTorch version on the card,
-           at the main path's shapes, within a stated tolerance
+           at the main paths' shapes: quant_matmul, paged_attention and
+           lut_matmul within computed error bounds, act_quant byte for byte
   serve    llama3.2-1b at its published widths (random weights from a
-           seed) through the port's Server: lq4w weights, 4-bit paged KV,
-           fused attention, bf16; launch counts must match the path
-  profile  torch.profiler over steady decode steps: device busy time per
-           step against the host-clock step (the device's idle share)
+           seed) through the port's Server, 4-bit paged KV, fused
+           attention, bf16, under three schemes: lq4w (weight-only,
+           quant_matmul), lq2_lut (act_quant then lut_matmul) and lq8
+           (act_quant then quant_matmul); launch counts must match each path
+  profile  torch.profiler over steady decode steps of each scheme: device
+           busy time per step against the host-clock step (idle share)
   parity   the same requests through the port on the card (kernels) and on
-           the CPU (plain versions), f32, 2 layers at full width: greedy
-           tokens identical, logits within a stated tolerance
+           the CPU (plain versions), f32, 2 layers at full width: lq4w
+           (greedy tokens identical, logits within a stated tolerance),
+           then lq8 and lq2_lut, whose act_quant codes are compared call by
+           call (see phase_parity_act)
   timing   CUDA-event times of each kernel, its plain version and a library
            call computing the same function, beside the card's bound
 
@@ -41,11 +46,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_FLOPS = 989e12              # dense bf16 tensor-core peak, same source
+F32_FLOPS = 67e12                # f32 outside the tensor cores, same source
 SEED = 0
 
-# the main path's geometry (README: serve --scheme lq4w --kv-bits 4
-# --continuous N --fused-attention)
-SLOTS, PAGE, KV_GROUP, KV_BITS, SCHEME = 4, 16, 16, 4, "lq4w"
+# the main paths' geometry (README: serve --scheme lq4w|lq2_lut|lq8
+# --kv-bits 4 --continuous N --fused-attention)
+SLOTS, PAGE, KV_GROUP, KV_BITS = 4, 16, 16, 4
+SCHEMES = ("lq4w", "lq2_lut", "lq8")
 PROMPT, NEW_TOKENS, N_REQUESTS = 128, 32, 8
 MAX_CONTEXT = -(-(PROMPT + NEW_TOKENS + 8) // PAGE) * PAGE      # 176
 
@@ -54,10 +61,12 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          peak: float = BF16_FLOPS) -> tuple[float, str]:
     """Least time in ms the card could take: bytes over its memory rate or
-    operations over its bf16 peak, whichever is larger."""
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+    operations over ``peak`` (the bf16 tensor-core rate by default),
+    whichever is larger."""
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -74,6 +83,30 @@ def cuda_time(fn, iters: int, warmup: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_time(fn, reps: int = 10, iters: int = 50) -> float:
+    """Mean device ms of ``fn()`` without its host launch cost: ``reps``
+    calls captured in one CUDA graph, replayed ``iters`` times between
+    CUDA events.  For kernels shorter than their wrapper's host time,
+    which an eager loop would measure instead."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (iters * reps)
 
 
 # ---------------------------------------------------------------------------
@@ -220,14 +253,86 @@ def check_paged_attention(dev) -> dict:
             "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"]}
 
 
+# one llama3.2-1b layer's 7 projections (q k v o gate up down): where each
+# weight sits in a layer's params, and its (K, N)
+PROJECTION_NAMES = (("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"),
+                    ("mixer", "wo"), ("ffn", "wi_gate"), ("ffn", "wi_up"),
+                    ("ffn", "wo"))
+PROJECTIONS = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+               (2048, 8192), (2048, 8192), (8192, 2048))
+
+
+def check_act_quant(dev) -> dict:
+    """The kernel's codes, scale and zmin equal the plain version's byte
+    for byte; every case has one region of range 0."""
+    from repro_torch.kernels import act_quant as aq
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    cases = 0
+    for bits in (1, 2, 3, 4, 8):
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (1, SLOTS, MAX_CONTEXT):
+                for k in (2048, 8192):
+                    x = torch.randn((m, k), generator=gen, device=dev)
+                    x[0, 128:256] = 0.25
+                    x = x.to(dtype)
+                    got = aq.act_quant(x, bits=bits, group_size=128)
+                    want = aq.plain(x, bits=bits, group_size=128)
+                    torch.cuda.synchronize()
+                    for name, g, w in zip(("codes", "scale", "zmin"),
+                                          got, want):
+                        if g.shape != w.shape or not torch.equal(g, w):
+                            raise AssertionError(
+                                f"act_quant bits={bits} {dtype} M={m} K={k}:"
+                                f" {name} differ from the plain version")
+                    cases += 1
+    return {"cases": cases, "max_abs_err": 0.0, "max_rel_err": 0.0,
+            "max_err_over_bound": 0.0}
+
+
+def check_lut_matmul(dev) -> dict:
+    """The kernel within ``lut_matmul.error_bound`` of the plain version,
+    over the 7 projection shapes at M = slots (decode) and the prefill
+    bucket, codes from the plain act_quant of a random x."""
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import lut_matmul as lm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    cases, worst = 0, {"abs": 0.0, "rel": 0.0, "ratio": 0.0}
+    for bits in (1, 2, 4):
+        for m in (SLOTS, MAX_CONTEXT):
+            for k, n in PROJECTIONS:
+                x = torch.randn((m, k), generator=gen, device=dev)
+                w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
+                a = aq.plain(x, bits=bits, group_size=128)
+                got = lm.lut_matmul(*a, w, bits=bits, group_size=128)
+                want = lm.plain(*a, w, bits=bits, group_size=128)
+                torch.cuda.synchronize()
+                tol = lm.error_bound(*a, w, want, bits=bits, group_size=128)
+                err = (got - want).abs()
+                ratio = float((err / tol).max())
+                if not bool((err <= tol).all()):
+                    raise AssertionError(
+                        f"lut_matmul bits={bits} M={m} K={k} N={n}: max err "
+                        f"{float(err.max())}, {ratio:.2f}x the bound")
+                worst["abs"] = max(worst["abs"], float(err.max()))
+                worst["rel"] = max(worst["rel"], float(
+                    (err / want.abs().clamp_min(1e-6)).max()))
+                worst["ratio"] = max(worst["ratio"], ratio)
+                cases += 1
+    return {"cases": cases, "max_abs_err": worst["abs"],
+            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"]}
+
+
 def phase_kernels(dev) -> dict:
     checks = {"quant_matmul": check_quant_matmul(dev),
-              "paged_attention": check_paged_attention(dev)}
+              "paged_attention": check_paged_attention(dev),
+              "act_quant": check_act_quant(dev),
+              "lut_matmul": check_lut_matmul(dev)}
     emit({"phase": "kernels", "checks": checks,
           "tolerance": "elementwise bounds from f32 summation order and "
                        "bf16 output rounding (error_bound in "
-                       "kernels/quant_matmul.py and "
-                       "kernels/paged_attention.py)", "tf32": False})
+                       "kernels/quant_matmul.py, kernels/paged_attention.py "
+                       "and kernels/lut_matmul.py); act_quant byte for byte",
+          "tf32": False})
     return checks
 
 
@@ -242,12 +347,31 @@ def _engine_class():
         """PagedEngine that times each prefill and decode step on the host
         clock (the step ends in a copy of its tokens to the host) and
         checks that its logits are finite; ``record`` keeps the logits of
-        the live slots for the parity phase."""
+        the live slots and the tokens each call emits for the parity
+        phase, and ``forced`` (the emitted tokens of another run) makes
+        each call emit those instead of its own greedy tokens."""
 
-        def __init__(self, *a, record=False, **kw):
+        def __init__(self, *a, record=False, forced=None, **kw):
             super().__init__(*a, **kw)
             self.prefill_ms, self.decode_ms = [], []
             self.logits = [] if record else None
+            self.emitted = [] if record else None
+            self.forced = forced
+
+        def _emit(self, out):
+            if self.forced is not None:
+                out = self.forced[len(self.emitted)]
+            if self.emitted is not None:
+                self.emitted.append(out)
+            return out
+
+        def prefill_request(self, pool, tokens, page_ids):
+            return self._emit(super().prefill_request(pool, tokens,
+                                                      page_ids))
+
+        def decode_step_batch(self, pool, tokens, page_table, pos):
+            return self._emit(super().decode_step_batch(pool, tokens,
+                                                        page_table, pos))
 
         def _check(self, logits, rows, kind):
             if not bool(torch.isfinite(logits[rows]).all()):
@@ -257,6 +381,8 @@ def _engine_class():
 
         def prefill_logits(self, pool, tokens, page_ids):
             t0 = time.perf_counter()
+            # the bucket's rows past the prompt are padding
+            self.live = torch.arange(self.pcfg.max_context) < len(tokens)
             out = super().prefill_logits(pool, tokens, page_ids)
             self._check(out, slice(None), "prefill")
             self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
@@ -264,9 +390,10 @@ def _engine_class():
 
         def decode_logits(self, pool, tokens, page_table, pos):
             t0 = time.perf_counter()
+            # slots without a request attend over the scratch page
+            self.live = torch.as_tensor(np.asarray(page_table)[:, 0] != 0)
             out = super().decode_logits(pool, tokens, page_table, pos)
-            live = torch.as_tensor(np.asarray(page_table)[:, 0] != 0)
-            self._check(out, live.to(out.device), "decode")
+            self._check(out, self.live.to(out.device), "decode")
             self.decode_ms.append((time.perf_counter() - t0) * 1e3)
             return out
 
@@ -279,20 +406,23 @@ def _prompts(cfg, n, length, seed):
             for _ in range(n)]
 
 
-def serve(cfg, params, *, dev, prompts, new_tokens, record=False,
-          arrival_every=2):
-    """Serve ``prompts`` through the port's Server with staggered arrivals;
-    returns (server, engine, outputs, wall seconds)."""
+def make_engine(cfg, params, scheme, dev, **kw):
     from repro_torch.serve.engine import EngineConfig, PagedConfig
-    from repro_torch.serve.server import RequestParams, Server
     ecfg = EngineConfig(max_len=MAX_CONTEXT, kv_bits=KV_BITS,
-                        kv_group=KV_GROUP, weight_scheme=SCHEME,
+                        kv_group=KV_GROUP, weight_scheme=scheme,
                         fused_attention=True)
     pcfg = PagedConfig(max_slots=SLOTS, page_size=PAGE, n_pages=64,
                        max_context=MAX_CONTEXT)
-    engine = _engine_class()(cfg, params, ecfg, pcfg, device=dev,
-                             record=record)
-    server = Server(cfg, None, ecfg, pcfg, engine=engine)
+    return _engine_class()(cfg, params, ecfg, pcfg, device=dev, **kw)
+
+
+def serve(engine, *, prompts, new_tokens, arrival_every=2):
+    """Serve ``prompts`` through the port's Server over ``engine`` with
+    staggered arrivals; returns (server, outputs, wall seconds)."""
+    from repro_torch.serve.server import RequestParams, Server
+    dev = engine.device
+    server = Server(engine.cfg, None, engine.ecfg, engine.pcfg,
+                    engine=engine)
     if dev.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -306,38 +436,46 @@ def serve(cfg, params, *, dev, prompts, new_tokens, record=False,
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    return server, engine, [server.output(r) for r in rids], wall
+    return server, [server.output(r) for r in rids], wall
 
 
-def phase_serve(dev) -> dict:
-    from repro_torch import configs
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import quant_matmul as qm
+def expected_launches(scheme: str, n_layers: int, prefills: int,
+                      steps: int) -> dict:
+    """Launches of each kernel on a scheme's path: 7 projections per layer
+    in every prefill and decode step, one attention per layer and decode
+    step (prefill attends in plain PyTorch)."""
+    proj = 7 * n_layers * (prefills + steps)
+    lut = scheme.endswith("_lut")
+    act = lut or not scheme.endswith("w")
+    return {"quant_matmul": 0 if lut else proj,
+            "paged_attention": n_layers * steps,
+            "act_quant": proj if act else 0,
+            "lut_matmul": proj if lut else 0}
+
+
+def phase_serve(dev, cfg, params, scheme) -> dict:
     from repro_torch.models import transformer
-    cfg = configs.get("llama3.2-1b")
-    params = transformer.init_params(cfg, SEED, dev)
     n_params = sum(a.numel() for a in transformer.leaves(params))
+    engine = make_engine(cfg, params, scheme, dev)
     # warm-up request: CUDA context, allocator, cuBLAS handles
-    serve(cfg, params, dev=dev, prompts=_prompts(cfg, 1, 16, SEED + 7),
-          new_tokens=2)
+    serve(engine, prompts=_prompts(cfg, 1, 16, SEED + 7), new_tokens=2)
+    engine.prefill_ms.clear()
+    engine.decode_ms.clear()
     torch.cuda.reset_peak_memory_stats()
     prompts = _prompts(cfg, N_REQUESTS, PROMPT, SEED)
-    qm.quant_matmul.launches = 0
-    pa.paged_attention.launches = 0
-    server, engine, outs, wall = serve(cfg, params, dev=dev, prompts=prompts,
-                                       new_tokens=NEW_TOKENS)
-    launches = {"quant_matmul": qm.quant_matmul.launches,
-                "paged_attention": pa.paged_attention.launches}
-    del params
+    from repro_torch.kernels import wrappers as kernel_wrappers
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    server, outs, wall = serve(engine, prompts=prompts,
+                               new_tokens=NEW_TOKENS)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     st = server.stats()
     steps, prefills = st["steps"], st["prefills"]
-    want_qm = 7 * cfg.n_layers * (prefills + steps)
-    want_pa = cfg.n_layers * steps
+    want = expected_launches(scheme, cfg.n_layers, prefills, steps)
     tokens = sum(len(o) for o in outs)
-    if launches["quant_matmul"] != want_qm \
-            or launches["paged_attention"] != want_pa:
-        raise AssertionError(f"launches {launches}, want quant_matmul "
-                             f"{want_qm} paged_attention {want_pa}")
+    if launches != want:
+        raise AssertionError(f"{scheme}: launches {launches}, want {want}")
     if tokens != N_REQUESTS * NEW_TOKENS or st["attention_mode"] != \
             "fused-cuda" or any(not 0 <= t < cfg.vocab_size
                                 for o in outs for t in o):
@@ -345,7 +483,7 @@ def phase_serve(dev) -> dict:
                              f"mode {st['attention_mode']}")
     row = {"phase": "serve", "model": cfg.name, "params": n_params,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "scheme": SCHEME, "kv_bits": KV_BITS, "kv_group": KV_GROUP,
+           "scheme": scheme, "kv_bits": KV_BITS, "kv_group": KV_GROUP,
            "dtype": cfg.dtype, "attention_mode": st["attention_mode"],
            "requests": N_REQUESTS, "prompt_len": PROMPT,
            "new_tokens": NEW_TOKENS, "max_slots": SLOTS,
@@ -389,7 +527,7 @@ def _device_busy(prof, steps: int) -> dict:
             "device_ops_per_step": len(spans) / steps,
             "top_device_ms_per_step": [
                 {"name": k[:60], "ms": ms, "per_step": c}
-                for k, ms, c in by_name[:6]]}
+                for k, ms, c in by_name[:8]]}
 
 
 def phase_profile(serve_out) -> dict:
@@ -418,7 +556,8 @@ def phase_profile(serve_out) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
     busy = _device_busy(prof, PROFILE_STEPS)
-    row = {"phase": "profile", "steps": PROFILE_STEPS, "slots": SLOTS,
+    row = {"phase": "profile", "scheme": engine.ecfg.weight_scheme,
+           "steps": PROFILE_STEPS, "slots": SLOTS,
            "host_step_ms": wall_ms, "serve_phase_step_ms_p50":
            serve_out["row"]["decode_step_ms_p50"], **busy,
            "device_idle_share":
@@ -442,7 +581,7 @@ def phase_profile(serve_out) -> dict:
 PARITY_LOGIT_TOL = 1e-2
 
 
-def phase_parity(dev) -> dict:
+def _parity_setup():
     import dataclasses
 
     from repro_torch import configs
@@ -450,29 +589,191 @@ def phase_parity(dev) -> dict:
     cfg = dataclasses.replace(configs.get("llama3.2-1b"), n_layers=2,
                               dtype="float32")
     params = transformer.init_params(cfg, SEED + 3, "cpu")
-    prompts = _prompts(cfg, SLOTS, 64, SEED + 3)
-    runs = {}
+    return cfg, params, _prompts(cfg, SLOTS, 64, SEED + 3)
+
+
+def _logit_diffs(g_log, c_log) -> list[float]:
+    if len(g_log) != len(c_log):
+        raise AssertionError(f"{len(g_log)} logit calls on the card, "
+                             f"{len(c_log)} on the CPU")
+    return [float((a - b).abs().max()) for (_, a), (_, b)
+            in zip(g_log, c_log)]
+
+
+def phase_parity(dev, cfg, params, prompts) -> dict:
+    """The weight-only parity run: lq4w, free running, greedy tokens identical
+    and logits within PARITY_LOGIT_TOL."""
+    from repro_torch.models import transformer
+    runs = []
     for d in (dev, torch.device("cpu")):
-        server, engine, outs, _ = serve(
-            cfg, transformer.params_to(params, d), dev=d, prompts=prompts,
-            new_tokens=8, record=True)
-        runs[d.type] = (outs, engine.logits, server.stats())
-    (g_out, g_log, _), (c_out, c_log, _) = runs["cuda"], runs["cpu"]
-    diffs = [float((a - b).abs().max()) for (_, a), (_, b)
-             in zip(g_log, c_log)]
-    row = {"phase": "parity", "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "dtype": "float32", "requests": len(prompts),
-           "logit_calls": len(diffs), "max_abs_logit_diff": max(diffs),
+        engine = make_engine(cfg, transformer.params_to(params, d), "lq4w",
+                             d, record=True)
+        _, outs, _ = serve(engine, prompts=prompts, new_tokens=8)
+        runs.append((outs, engine.logits))
+    (g_out, g_log), (c_out, c_log) = runs
+    diffs = _logit_diffs(g_log, c_log)
+    row = {"phase": "parity", "scheme": "lq4w", "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "requests": len(prompts), "logit_calls": len(diffs),
+           "max_abs_logit_diff": max(diffs),
            "median_abs_logit_diff": statistics.median(diffs),
            "per_call": [[k, d] for (k, _), d in zip(g_log, diffs)],
            "max_abs_logit": max(float(a.abs().max()) for _, a in c_log),
            "tolerance": PARITY_LOGIT_TOL,
            "tokens_identical": g_out == c_out}
     emit(row)
-    if len(g_log) != len(c_log) or g_out != c_out:
+    if g_out != c_out:
         raise AssertionError("greedy tokens differ between card and CPU")
     if max(diffs) > PARITY_LOGIT_TOL:
         raise AssertionError(f"logits differ by {max(diffs)}")
+    return row
+
+
+class ActQuantTap:
+    """Wraps ``ops.act_quant`` (what ``quant_dense`` calls) for one run.
+
+    ``record``: keeps every call's input and outputs on the host, in call
+    order.  ``compare``: the call keeps its own outputs, and each is
+    compared with the reference record at the same place.  ``share``: as
+    ``compare``, then the call returns the reference's outputs, so the
+    forward goes on from the reference's codes and every difference that
+    reaches a later call is f32 noise, not a flipped code's wake.
+
+    Per compared call, over the rows of live requests (``engine.live``:
+    the prompt's rows of a prefill bucket, the busy slots of a decode
+    step; the other rows read the scratch page, whose contents the two
+    devices write in different orders, and reach no output): codes that
+    differ, their largest difference, and the flips that the two sides'
+    measured input noise predicts, E = sum_i min(1, |u_i - u'_i|) over
+    u = (x - zmin) / scale: a code flips when a rounding boundary lies
+    between u and u', which for a fractional part spread evenly happens
+    with probability |u - u'|."""
+
+    def __init__(self, mode, engine, reference=None):
+        self.mode, self.engine, self.reference = mode, engine, reference
+        self.records, self.stats = [], []
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self._ops, self._inner = ops, ops.act_quant
+        ops.act_quant = self
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.act_quant = self._inner
+
+    def __call__(self, x, *, bits, group_size):
+        out = self._inner(x, bits=bits, group_size=group_size)
+        host = [x.float().cpu()] + [t.cpu() for t in out]
+        if self.mode == "record":
+            self.records.append(host)
+            return out
+        ref = self.reference[len(self.stats)]
+        self.stats.append(self._compare(host, ref, self.engine.live, bits,
+                                        group_size))
+        if self.mode == "share":
+            return tuple(t.to(x.device) for t in ref[1:])
+        return out
+
+    @staticmethod
+    def _compare(got, ref, live, bits, gs) -> dict:
+        from repro_torch.core import packing
+
+        def steps(x, scale, zmin):
+            m, k = x.shape
+            return ((x.reshape(m, k // gs, gs) - zmin[..., None])
+                    / scale[..., None]).reshape(m, k)
+        diff = (packing.unpack(got[1], bits).int()
+                - packing.unpack(ref[1], bits).int()).abs()
+        du = (steps(got[0], got[2], got[3])
+              - steps(ref[0], ref[2], ref[3])).abs()[live]
+        return {"codes": du.numel(), "differ": int((diff[live] > 0).sum()),
+                "max_diff": int(diff[live].max()),
+                "expected": float(du.clamp_max(1.0).sum()),
+                "dead_rows_differ": int((diff[~live] > 0).sum())}
+
+
+def _code_summary(stats) -> dict:
+    n = sum(s["codes"] for s in stats)
+    d = sum(s["differ"] for s in stats)
+    e = sum(s["expected"] for s in stats)
+    return {"calls": len(stats), "codes": n, "differ": d, "share": d / n,
+            "max_diff": max(s["max_diff"] for s in stats),
+            "expected_flips": e,
+            "dead_rows_differ": sum(s["dead_rows_differ"] for s in stats),
+            "flip_bound": e + 4 * e ** 0.5 + 4}
+
+
+def phase_parity_act(dev, cfg, params, prompts, scheme) -> dict:
+    """Card against CPU under an activation-quantized scheme.
+
+    The CPU run goes first, free running, and records every act_quant
+    call and the tokens each engine call emits.  Then two card runs:
+
+    shared  the card's act_quant runs (the kernel, on the card's inputs)
+            and is compared with the CPU's call at the same place, then
+            hands on the CPU's codes.  Gates: codes differ by at most 1,
+            no more often than the flips the measured input noise
+            predicts, E, plus 4 sqrt(E) + 4, and every call's
+            logits within PARITY_LOGIT_TOL.  lq8 runs free: its greedy
+            tokens must equal the CPU's; lq2_lut is teacher-forced on the
+            CPU's tokens.
+    free    teacher-forced, the card's own codes all the way.  A code that
+            flips at a tie moves its row, at 2 bits by a third of its
+            region's range, and later act_quant calls of the same forward
+            then flip in its wake; the counts are reported.  Gate: every
+            logit call none of whose act_quant codes differ keeps
+            PARITY_LOGIT_TOL."""
+    from repro_torch.models import transformer
+    per_call = 7 * cfg.n_layers            # act_quant calls per logit call
+    cpu_engine = make_engine(cfg, params, scheme, torch.device("cpu"),
+                             record=True)
+    with ActQuantTap("record", cpu_engine) as ref:
+        _, c_out, _ = serve(cpu_engine, prompts=prompts, new_tokens=8)
+    c_log = cpu_engine.logits
+    card_params = transformer.params_to(params, dev)
+    row = {"phase": "parity", "scheme": scheme, "layers": cfg.n_layers,
+           "d_model": cfg.d_model, "dtype": "float32",
+           "requests": len(prompts), "tolerance": PARITY_LOGIT_TOL}
+    for mode in ("shared", "free"):
+        forced = None if (mode == "shared" and scheme == "lq8") \
+            else cpu_engine.emitted
+        engine = make_engine(cfg, card_params, scheme, dev, record=True,
+                             forced=forced)
+        with ActQuantTap("share" if mode == "shared" else "compare",
+                         engine, ref.records) as tap:
+            _, g_out, _ = serve(engine, prompts=prompts, new_tokens=8)
+        diffs = _logit_diffs(engine.logits, c_log)
+        if len(tap.stats) != per_call * len(diffs):
+            raise AssertionError(f"{len(tap.stats)} act_quant calls for "
+                                 f"{len(diffs)} logit calls")
+        clean = [d for i, d in enumerate(diffs) if not any(
+            s["differ"] for s in tap.stats[i * per_call:(i + 1) * per_call])]
+        row[mode] = {**_code_summary(tap.stats),
+                     "teacher_forced": forced is not None,
+                     "tokens_identical": g_out == c_out,
+                     "logit_calls": len(diffs),
+                     "max_abs_logit_diff": max(diffs),
+                     "calls_without_differing_codes": len(clean),
+                     "max_abs_logit_diff_of_those": max(clean, default=0.0),
+                     "per_call": [[k, d] for (k, _), d
+                                  in zip(engine.logits, diffs)]}
+    emit(row)
+    sh, fr = row["shared"], row["free"]
+    if not sh["tokens_identical"]:
+        raise AssertionError(f"{scheme}: greedy tokens differ between card "
+                             f"and CPU")
+    if sh["max_diff"] > 1 or sh["differ"] > sh["flip_bound"]:
+        raise AssertionError(f"{scheme}: act_quant codes differ by up to "
+                             f"{sh['max_diff']} on {sh['differ']} codes "
+                             f"(bound {sh['flip_bound']:.1f})")
+    if sh["max_abs_logit_diff"] > PARITY_LOGIT_TOL:
+        raise AssertionError(f"{scheme}: logits from shared codes differ by "
+                             f"{sh['max_abs_logit_diff']}")
+    if fr["max_abs_logit_diff_of_those"] > PARITY_LOGIT_TOL:
+        raise AssertionError(f"{scheme}: a call without differing codes has "
+                             f"logits {fr['max_abs_logit_diff_of_those']} "
+                             f"apart")
     return row
 
 
@@ -487,10 +788,7 @@ def time_quant_matmul(engine, cfg) -> dict:
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     dev = engine.device
-    names = [("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"),
-             ("mixer", "wo"), ("ffn", "wi_gate"), ("ffn", "wi_up"),
-             ("ffn", "wo")]
-    qws = [[lay[a][b]["w"] for a, b in names]
+    qws = [[lay[a][b]["w"] for a, b in PROJECTION_NAMES]
            for lay in engine.params["layers"]]
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     xs = {qw.k: torch.randn((SLOTS, qw.k), generator=gen,
@@ -533,7 +831,7 @@ def time_quant_matmul(engine, cfg) -> dict:
             "library_ms": cuda_time(library, 20) / n_layers,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"one layer's 7 projections at M={SLOTS}, bf16 x, "
-                     f"{SCHEME} (K,N) as in per_projection; timed over all "
+                     f"lq4w (K,N) as in per_projection; timed over all "
                      f"{n_layers} layers' own weights",
             "per_projection_hot_l2": per_proj}
 
@@ -582,10 +880,101 @@ def time_paged_attention(dev) -> dict:
                        "dequantized bf16 cache"}
 
 
-def phase_timing(serve_out, dev) -> dict:
-    t = {"quant_matmul": time_quant_matmul(serve_out["engine"],
-                                           serve_out["cfg"]),
-         "paged_attention": time_paged_attention(dev)}
+def time_act_quant(dev) -> dict:
+    """One decode step's act_quant calls of a layer at M = max_slots, bf16
+    x: six at K = 2048 and one at K = 8192, at 2 bits (lq2_lut) and at 8
+    (lq8).  It moves a few KB per call, so the kernel takes less time
+    than its wrapper's host work: ``ms`` is device time from CUDA-graph
+    replays, ``eager_ms`` the eager loop that the host paces."""
+    from repro_torch.kernels import act_quant as aq
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    xs = [torch.randn((SLOTS, k), generator=gen,
+                      device=dev).to(torch.bfloat16)
+          for k, _ in PROJECTIONS]
+    out = {}
+    for bits in (2, 8):
+        def kernel(bits=bits):
+            for x in xs:
+                aq.act_quant(x, bits=bits, group_size=128)
+
+        def plain(bits=bits):
+            for x in xs:
+                aq.plain(x, bits=bits, group_size=128)
+        nbytes = flops = 0
+        for x in xs:
+            m, k = x.shape
+            nbytes += m * k * 2 + m * k * bits / 8 + m * (k // 128) * 8
+            flops += 6 * m * k       # min, max, sub, div, round, clip
+        b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+        out[bits] = {"ms": graph_time(kernel),
+                     "eager_ms": cuda_time(kernel, 200),
+                     "plain_ms": cuda_time(plain, 50),
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    return {**out[2], "eight_bit": out[8],
+            "shape": f"one layer's 7 calls at M={SLOTS}, bf16 x, K 6x2048 "
+                     f"+ 1x8192, 2 bits (eight_bit: the same at 8 bits)",
+            "library": "none: no single PyTorch call quantizes per region"}
+
+
+def time_lut_matmul(engine) -> dict:
+    """One decode step's lut_matmul calls (7 per layer, every layer's own
+    f32 weights, so they stream from memory as on the path) at M =
+    max_slots with 2-bit codes; per-layer times are that over the layer
+    count.  The library call is torch.matmul of the dequantized
+    activations and the f32 weights, TF32 off."""
+    from repro_torch.kernels import act_quant as aq
+    from repro_torch.kernels import lut_matmul as lm
+    from repro_torch.kernels import ops, ref
+    dev = engine.device
+    ws = [[ops.dequantize_weight(lay[a][b]["w"]) for a, b in PROJECTION_NAMES]
+          for lay in engine.params["layers"]]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    acts = {k: aq.plain(torch.randn((SLOTS, k), generator=gen, device=dev),
+                        bits=2, group_size=128) for k, _ in PROJECTIONS}
+    deq = {k: ref.act_dequant(*a, bits=2, group_size=128)
+           for k, a in acts.items()}
+
+    def kernel():
+        for row in ws:
+            for w in row:
+                lm.lut_matmul(*acts[w.shape[0]], w, bits=2, group_size=128)
+
+    def plain():
+        for row in ws:
+            for w in row:
+                lm.plain(*acts[w.shape[0]], w, bits=2, group_size=128)
+
+    def library():
+        for row in ws:
+            for w in row:
+                torch.matmul(deq[w.shape[0]], w)
+
+    nbytes = flops = 0
+    for k, n in PROJECTIONS:
+        g = k // 128
+        nbytes += k * n * 4 + SLOTS * (k // 4 + g * 8) + SLOTS * n * 4
+        # a table add per (m, k, n), the combine and affine per (m, g, n),
+        # sum_j w_j per (k, n)
+        flops += SLOTS * k * n + SLOTS * g * n * (2 * 3 + 4) + k * n
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    n_layers = len(ws)
+    return {"ms": cuda_time(kernel, 10) / n_layers,
+            "plain_ms": cuda_time(plain, 2, warmup=1) / n_layers,
+            "library_ms": cuda_time(library, 10) / n_layers,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "shape": f"one layer's 7 projections at M={SLOTS}, 2-bit codes, "
+                     f"f32 W (K,N) {list(PROJECTIONS)}; timed over all "
+                     f"{n_layers} layers' own weights; bound against the "
+                     f"f32 non-tensor peak",
+            "library": "torch.matmul(act_dequant(a), W), f32, TF32 off"}
+
+
+def phase_timing(serves, dev) -> dict:
+    lq4w = serves["lq4w"]
+    t = {"quant_matmul": time_quant_matmul(lq4w["engine"], lq4w["cfg"]),
+         "paged_attention": time_paged_attention(dev),
+         "act_quant": time_act_quant(dev),
+         "lut_matmul": time_lut_matmul(serves["lq2_lut"]["engine"])}
     emit({"phase": "timing", **t})
     return t
 
@@ -605,18 +994,32 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     checks = phase_kernels(dev)
-    serve_out = phase_serve(dev)
-    phase_profile(serve_out)
-    phase_parity(dev)
-    timing = phase_timing(serve_out, dev)
-    launches = serve_out["row"]["launches"]
+    from repro_torch import configs
+    from repro_torch.models import transformer
+    cfg = configs.get("llama3.2-1b")
+    params = transformer.init_params(cfg, SEED, dev)
+    serves = {}
+    for scheme in SCHEMES:
+        serves[scheme] = phase_serve(dev, cfg, params, scheme)
+        phase_profile(serves[scheme])
+    del params
+    pcfg, pparams, prompts = _parity_setup()
+    phase_parity(dev, pcfg, pparams, prompts)
+    for scheme in ("lq8", "lq2_lut"):
+        phase_parity_act(dev, pcfg, pparams, prompts, scheme)
+    timing = phase_timing(serves, dev)
+    by_scheme = {sc: sv["row"]["launches"] for sc, sv in serves.items()}
     csrc = "src/repro_torch/kernels/csrc"
     replaces = {"quant_matmul": "src/repro/kernels/quant_matmul.py:121",
-                "paged_attention": "src/repro/kernels/paged_attention.py:341"}
+                "paged_attention": "src/repro/kernels/paged_attention.py:341",
+                "act_quant": "src/repro/kernels/act_quant.py:64",
+                "lut_matmul": "src/repro/kernels/lut_matmul.py:101"}
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
+         "replaces": replaces[name],
+         "launches": sum(ln[name] for ln in by_scheme.values()),
+         "launches_by_scheme": {sc: ln[name] for sc, ln in by_scheme.items()},
          "max_abs_err": checks[name]["max_abs_err"],
          "max_rel_err": checks[name]["max_rel_err"],
          "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
@@ -624,7 +1027,7 @@ def main() -> int:
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],
          "shape": timing[name]["shape"]}
-        for name in ("quant_matmul", "paged_attention")]})
+        for name in replaces]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

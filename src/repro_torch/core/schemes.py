@@ -17,8 +17,10 @@ Named schemes mirror the paper's experiment grid:
   lq2_lut                      -- 2-bit LQ + LUT forward (paper section V,
                                   weights 8-bit as in paper Table 3 setup)
 
-Only the weight-only ``lq{b}w`` schemes run in the port so far; the ``a_bits``
-and ``lut`` forwards are listed in ROADMAP.md.
+The ``lq*`` schemes all serve in the port: ``lq{b}w`` through
+``quant_matmul``; ``lq{b}`` (and any scheme with ``a_bits``) through
+``act_quant`` then ``quant_matmul``; ``lq2_lut``/``lq4_lut`` through
+``act_quant`` then ``lut_matmul``.
 """
 from __future__ import annotations
 

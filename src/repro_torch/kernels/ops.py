@@ -2,8 +2,9 @@
 ``repro/kernels/ops.py``).
 
 Dispatch follows the tensors: a CPU tensor runs the plain PyTorch version,
-a CUDA tensor the hand-written kernel (``quant_matmul.py``).  There is no
-backend switch that would put a plain version on the card's path.
+a CUDA tensor the hand-written kernel (``quant_matmul.py``,
+``act_quant.py``, ``lut_matmul.py``).  There is no backend switch that
+would put a plain version on the card's path.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import dataclasses
 
 import torch
 
+from . import act_quant as _aq
+from . import lut_matmul as _lm
 from . import quant_matmul as _qm
 from . import ref as _ref
 
@@ -61,14 +64,42 @@ def quant_matmul(x: torch.Tensor, qw: QWeight) -> torch.Tensor:
     return out.reshape(*lead, qw.n)
 
 
+def act_quant(x: torch.Tensor, *, bits: int, group_size: int):
+    """Runtime activation quantization (paper: inputs quantized online).
+    x (..., K) -> (packed (..., K/cpb), scale (..., G), zmin (..., G))."""
+    lead = x.shape[:-1]
+    packed, scale, zmin = _aq.act_quant(x.reshape(-1, x.shape[-1]),
+                                        bits=bits, group_size=group_size)
+    g = x.shape[-1] // group_size
+    return (packed.reshape(*lead, -1), scale.reshape(*lead, g),
+            zmin.reshape(*lead, g))
+
+
+def lut_matmul(a_packed, a_scale, a_zmin, w, *, bits: int, group_size: int):
+    """Paper section-V LUT forward.  a_* in the activation wire format;
+    w float (K, N).  Returns f32 (M, N)."""
+    return _lm.lut_matmul(a_packed, a_scale, a_zmin, w, bits=bits,
+                          group_size=group_size)
+
+
 def quant_dense(x: torch.Tensor, qw: QWeight, *, a_bits: int | None = None,
                 lut: bool = False) -> torch.Tensor:
-    """One projection of the paper's forward.  Only the weight-only path
-    is ported: runtime activation quantization (``a_bits``) and the LUT
-    forward (``lut``) need the ``act_quant`` and ``lut_matmul`` kernels."""
-    if lut or a_bits is not None:
-        raise NotImplementedError(
-            "activation-quantized and LUT forwards (a_bits / lut schemes) "
-            "are not ported yet: ROADMAP.md Queue 2 items 3-4 (act_quant, "
-            "lut_matmul) and Queue 1 item 9")
-    return quant_matmul(x, qw)
+    """Full paper forward for one projection: optional runtime activation
+    quant (``a_bits``), then the packed-weight matmul -- or the LUT path
+    when ``lut=True`` (activations quantized, weights dequantized to f32
+    per call in plain PyTorch, as the JAX package does outside its
+    kernels)."""
+    if a_bits is None:
+        if lut:
+            raise ValueError("LUT path requires a_bits")
+        return quant_matmul(x, qw)
+    lead = x.shape[:-1]
+    ap, asc, azm = act_quant(x.reshape(-1, qw.k), bits=a_bits,
+                             group_size=qw.group_size)
+    if lut:
+        out = lut_matmul(ap, asc, azm, dequantize_weight(qw), bits=a_bits,
+                         group_size=qw.group_size)
+        return out.reshape(*lead, qw.n).to(x.dtype)
+    xq = _ref.act_dequant(ap, asc, azm, bits=a_bits,
+                          group_size=qw.group_size).to(x.dtype)
+    return quant_matmul(xq.reshape(*lead, qw.k), qw)

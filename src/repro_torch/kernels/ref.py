@@ -6,6 +6,12 @@ Weight wire format ("QWeight"), regions along the contraction axis K:
     packed : uint8 (K // codes_per_byte, N)   codes packed along K
     scale  : f32   (G, N)   G = K // group_size
     zmin   : f32   (G, N)
+
+Activation wire format ("QAct"), regions along each row:
+
+    packed : uint8 (M, K // codes_per_byte)   codes packed along K
+    scale  : f32   (M, G)
+    zmin   : f32   (M, G)
 """
 from __future__ import annotations
 
@@ -52,6 +58,42 @@ def quant_matmul(x, packed, scale, zmin, *, bits: int, group_size: int):
     """x (M, K) @ dequant(w), summed in f32, returned in x's dtype."""
     w = dequantize_weight(packed, scale, zmin, bits, group_size)
     return (x.to(torch.float32) @ w).to(x.dtype)
+
+
+def act_quant(x, *, bits: int, group_size: int):
+    """Runtime activation quantization, per row and per local region:
+    x (M, K) -> (packed (M, K/cpb) uint8, scale (M, G), zmin (M, G)).
+
+    Same rounding as :func:`quantize_weight`: half-to-even, scale 1 where
+    a region's range is 0, true division by a tensor."""
+    m, k = x.shape
+    if k % group_size:
+        raise ValueError(f"K={k} not divisible by group_size={group_size}")
+    g = k // group_size
+    xf = x.to(torch.float32).reshape(m, g, group_size)
+    xmin = xf.amin(-1)                                      # (M, G)
+    xmax = xf.amax(-1)
+    scale = packing.step_size(xmax - xmin, bits)
+    codes = torch.clamp(torch.round((xf - xmin[..., None]) / scale[..., None]),
+                        0, (1 << bits) - 1).to(torch.uint8).reshape(m, k)
+    return packing.pack(codes, bits), scale, xmin
+
+
+def act_dequant(packed, scale, zmin, *, bits: int, group_size: int):
+    """Inverse of :func:`act_quant` -> f32 (M, K)."""
+    codes = packing.unpack(packed, bits).to(torch.float32)      # (M, K)
+    m, k = codes.shape
+    g = k // group_size
+    return (codes.reshape(m, g, group_size) * scale[..., None]
+            + zmin[..., None]).reshape(m, k)
+
+
+def lut_matmul(a_packed, a_scale, a_zmin, w, *, bits: int, group_size: int):
+    """dequant(a) @ w in f32 by explicit dequantization (the oracle of the
+    LUT forward; ``lut_matmul.plain`` follows the kernel's dataflow)."""
+    a = act_dequant(a_packed, a_scale, a_zmin, bits=bits,
+                    group_size=group_size)
+    return a @ w.to(torch.float32)
 
 
 def masked_attention(q, k, v, pos):

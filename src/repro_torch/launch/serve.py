@@ -10,8 +10,11 @@ over the paged pool at the architecture's published widths, with random
 weights from ``--seed``, on the card.  ``--device cpu`` runs the same path
 on the CPU through the kernels' plain versions; ``--smoke`` swaps in the
 reduced same-family configuration (the one the JAX launcher serves), which
-keeps a CPU run short.  Flags of the JAX launcher that are not ported
-fail with the ROADMAP.md item that covers them.
+keeps a CPU run short.  ``--scheme lq8`` (or any ``lq{b}``) and
+``lq2_lut``/``lq4_lut`` quantize activations at run time, the paper's
+forward; ``--a-bits N`` sets their bits on any scheme.  Flags of the JAX
+launcher that are not ported fail with the ROADMAP.md item that covers
+them.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from .. import configs
 from .. import device as _device
-from ..kernels import paged_attention, quant_matmul
+from .. import kernels as _kernels
 from ..models import transformer
 from ..serve.engine import EngineConfig, PagedConfig
 from ..serve.server import RequestParams, Server
@@ -34,7 +37,6 @@ ARRIVAL_EVERY = 2        # decode steps between request arrivals
 # flags of repro.launch.serve the port does not take yet -> ROADMAP item
 NOT_PORTED = {
     "--plan": "Queue 1 item 3 (PlanPolicy / super_segments)",
-    "--a-bits": "Queue 1 item 9 and Queue 2 items 3-4 (act_quant)",
     "--spec-plan": "Queue 1 item 5 (speculative decoding)",
     "--spec-k": "Queue 1 item 5 (speculative decoding)",
     "--fleet": "Queue 1 item 7 (fleet)",
@@ -64,7 +66,10 @@ def parse(argv=None):
     ap.add_argument("--arch", required=True, choices=list(configs.names()))
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced same-family configuration")
-    ap.add_argument("--scheme", default=None, help="weight scheme, e.g. lq4w")
+    ap.add_argument("--scheme", default=None,
+                    help="quant scheme, e.g. lq4w, lq8, lq2_lut")
+    ap.add_argument("--a-bits", type=int, default=None,
+                    help="runtime activation bits; overrides the scheme's")
     ap.add_argument("--kv-bits", type=int, default=None)
     ap.add_argument("--kv-group", type=int, default=16)
     ap.add_argument("--continuous", type=int, required=True, metavar="N",
@@ -97,6 +102,7 @@ def main(argv=None) -> dict:
     mc = -(-want // args.page_size) * args.page_size
     ecfg = EngineConfig(max_len=mc, kv_bits=args.kv_bits,
                         kv_group=args.kv_group, weight_scheme=args.scheme,
+                        a_bits=args.a_bits,
                         fused_attention=args.fused_attention)
     pcfg = PagedConfig(max_slots=args.max_slots, page_size=args.page_size,
                        n_pages=args.n_pages, max_context=mc)
@@ -107,8 +113,9 @@ def main(argv=None) -> dict:
     server.submit(rng.integers(0, cfg.vocab_size, args.prompt_len).tolist(),
                   RequestParams(max_new_tokens=2))
     server.drain()                  # builds the kernels, off the clock
-    quant_matmul.quant_matmul.launches = 0
-    paged_attention.paged_attention.launches = 0
+    kernels = _kernels.wrappers()
+    for fn in kernels.values():
+        fn.launches = 0
     _sync(dev)
     t0 = time.perf_counter()
     rids = []
@@ -127,18 +134,19 @@ def main(argv=None) -> dict:
     dt = time.perf_counter() - t0
     toks = sum(len(server.output(r)) for r in rids)
     s = server.stats()
-    print(f"arch={cfg.name} scheme={args.scheme} kv_bits={args.kv_bits} "
+    print(f"arch={cfg.name} scheme={args.scheme} a_bits={args.a_bits} "
+          f"kv_bits={args.kv_bits} "
           f"device={dev} attention={s['attention_mode']}")
     print(f"continuous: {len(rids)} requests, {toks} tokens in {dt:.2f}s "
           f"-> {toks / dt:.1f} tok/s")
     print(f"pool: {server.pool.n_pages} pages x "
           f"{server.pool.page_nbytes():,} B, peak occupancy {max(occ):.2f}, "
           f"mean {sum(occ) / len(occ):.2f}")
-    print(f"kernel launches: quant_matmul "
-          f"{quant_matmul.quant_matmul.launches}, paged_attention "
-          f"{paged_attention.paged_attention.launches}")
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    print("kernel launches: " + ", ".join(f"{n} {c}"
+                                          for n, c in launches.items()))
     print("sample:", server.output(rids[0])[:16])
-    return {"tokens": toks, "seconds": dt, "stats": s,
+    return {"tokens": toks, "seconds": dt, "stats": s, "launches": launches,
             "outputs": [server.output(r) for r in rids]}
 
 

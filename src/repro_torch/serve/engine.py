@@ -3,7 +3,9 @@ greedy decode over them (port of ``repro/serve/engine.py``, paged path).
 
 Weights are quantized offline into the packed LQ format
 (``transformer.quantize_params``) and every projection runs
-``quant_matmul``; K/V live in the paged pool in the wire format.  With
+``ops.quant_dense``: ``quant_matmul``, after ``act_quant`` where the
+scheme quantizes activations, or ``act_quant`` then ``lut_matmul`` under
+the LUT schemes; K/V live in the paged pool in the wire format.  With
 ``fused_attention`` each layer's decode attention runs the paged-attention
 kernel; without it the pages are gathered, dequantized and attended in
 plain PyTorch, as the JAX package's XLA path does.
@@ -33,6 +35,7 @@ class EngineConfig:
     kv_bits: int | None = None           # None = fp cache
     kv_group: int = 64
     weight_scheme: str | None = None     # e.g. "lq4w"; None = fp weights
+    a_bits: int | None = None            # overrides the scheme's a_bits
     # paged decode through the paged-attention kernel; on the card that
     # is the CUDA kernel or an error, never a silent fallback
     fused_attention: bool = False
@@ -69,6 +72,8 @@ class PagedEngine:
         self.device = _device.resolve(device)
         if ecfg.weight_scheme is not None:
             qcfg = schemes.get(ecfg.weight_scheme)
+            if ecfg.a_bits is not None:
+                qcfg = dataclasses.replace(qcfg, a_bits=ecfg.a_bits)
             params = transformer.quantize_params(params, cfg, qcfg)
             self.policy = QuantPolicy.serve(qcfg)
         else:

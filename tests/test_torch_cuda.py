@@ -11,13 +11,17 @@ runs on a machine with the card and without JAX:
 Tolerances: quant_matmul is held to ``quant_matmul.error_bound`` (f32
 summation order, bf16 output rounding), as chip_smoke.py holds it;
 paged attention re-associates an online softmax over at most 64 keys of
-unit-scale values, well inside 1e-5.  TF32 is off.
+unit-scale values, well inside 1e-5.  act_quant must give the plain
+version's bytes exactly; lut_matmul is held to ``lut_matmul.error_bound``
+(f32 summation order).  TF32 is off.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import kvwire
+from repro_torch.kernels import act_quant as aq
+from repro_torch.kernels import lut_matmul as lm
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import quant_matmul as qm
@@ -99,3 +103,81 @@ def test_paged_attention_kernel_matches_plain(bits, lq):
     for dq in ("affine", "lut") if bits is not None and bits <= 4 else ():
         assert torch.equal(pa.paged_attention(q, k, v, table, pos,
                                               dequant=dq), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_act_quant_kernel_gives_plain_bytes(bits, dtype):
+    dev = _card()
+    for m, k, gs in ((1, 256, 128), (5, 512, 128), (37, 256, 128),
+                     (3, 256, 32), (4, 256, 64), (6, 512, 256)):
+        x = RNG.normal(size=(m, k)).astype(np.float32)
+        x[0, :gs] = 0.5                          # a region of range 0
+        x = _t(x, dev).to(dtype)
+        before = aq.act_quant.launches
+        got = aq.act_quant(x, bits=bits, group_size=gs)
+        assert aq.act_quant.launches == before + 1
+        want = aq.plain(x, bits=bits, group_size=gs)
+        cpu = aq.plain(x.cpu(), bits=bits, group_size=gs)
+        for g, w, c in zip(got, want, cpu):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w) and torch.equal(g.cpu(), c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_lut_matmul_kernel_matches_plain(bits):
+    dev = _card()
+    for m, k, n in ((1, 256, 70), (4, 512, 96), (37, 256, 33),
+                    (20, 384, 64)):
+        x = _t(RNG.normal(size=(m, k)).astype(np.float32), dev)
+        w = _t(RNG.normal(size=(k, n)).astype(np.float32) * k ** -0.5, dev)
+        a = aq.plain(x, bits=bits, group_size=128)
+        before = lm.lut_matmul.launches
+        got = lm.lut_matmul(*a, w, bits=bits, group_size=128)
+        assert lm.lut_matmul.launches == before + 1
+        want = lm.plain(*a, w, bits=bits, group_size=128)
+        tol = lm.error_bound(*a, w, want, bits=bits, group_size=128)
+        assert got.dtype == torch.float32 and got.shape == (m, n)
+        assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,a_bits,lut", [("lq8", 8, False),
+                                               ("lq2_lut", 2, True)])
+def test_quant_dense_branches_launch_their_kernels(scheme, a_bits, lut):
+    dev = _card()
+    w = _t(RNG.normal(size=(256, 48)).astype(np.float32) * 0.0625, dev)
+    x = _t(RNG.normal(size=(2, 3, 256)).astype(np.float32), dev)
+    qw = ops.quantize_weight(w, 8, 128)
+    counts = (aq.act_quant, lm.lut_matmul, qm.quant_matmul)
+    before = [f.launches for f in counts]
+    got = ops.quant_dense(x, qw, a_bits=a_bits, lut=lut)
+    added = [f.launches - b for f, b in zip(counts, before)]
+    assert added == ([1, 1, 0] if lut else [1, 0, 1])
+    want = ops.quant_dense(x.cpu(), qw.to("cpu"), a_bits=a_bits, lut=lut)
+    assert got.shape == (2, 3, 48)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_new_kernels_refuse_what_they_do_not_take():
+    dev = _card()
+    x = torch.randn(4, 256, device=dev)
+    with pytest.raises(TypeError):
+        aq.act_quant(x.to(torch.float16), bits=4, group_size=128)
+    with pytest.raises(ValueError):
+        aq.act_quant(x, bits=4, group_size=16)
+    with pytest.raises(ValueError):
+        aq.act_quant(x, bits=9, group_size=128)
+    a = aq.act_quant(x, bits=2, group_size=128)
+    w = torch.randn(256, 32, device=dev)
+    with pytest.raises(TypeError):
+        lm.lut_matmul(*a, w.to(torch.bfloat16), bits=2, group_size=128)
+    with pytest.raises(ValueError):
+        lm.lut_matmul(a[0], a[1][:, :1], a[2], w, bits=2, group_size=128)
+    with pytest.raises(ValueError):
+        lm.lut_matmul(a[0], a[1], a[2].cpu(), w, bits=2, group_size=128)
+    with pytest.raises(ValueError):
+        lm.lut_matmul(*a, w, bits=8, group_size=128)

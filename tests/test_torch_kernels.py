@@ -9,7 +9,8 @@ Tolerances: both sides compute in f32.  quant_matmul sums K=256 products
 in another order (XLA vs PyTorch), ~sqrt(K)*2^-24 relative, so 1e-5 of
 the output scale; paged attention re-associates an online softmax over
 at most 64 keys, well inside 2e-5 (the JAX package's own bound for its
-kernel against its XLA path).
+kernel against its XLA path).  The act_quant and lut_matmul wrappers
+are held to the JAX kernels in ``test_torch_act_kernels.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -70,11 +71,18 @@ def test_quant_matmul_rejects_ragged_k():
 
 
 def test_quant_dense_activation_paths_name_roadmap():
+    """The activation paths ROADMAP.md listed as not ported (``a_bits``,
+    ``lut``) now run; what stays refused is what the JAX package refuses:
+    a LUT forward without activation bits, or with more than 4."""
     _, _, tq = _qm_inputs(2, 128, 8, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.quant_dense(torch.randn(2, 128), tq, a_bits=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.quant_dense(torch.randn(2, 128), tq, a_bits=2, lut=True)
+    x = torch.randn(2, 128)
+    for kw in (dict(a_bits=4), dict(a_bits=2, lut=True)):
+        out = tops.quant_dense(x, tq, **kw)
+        assert out.shape == (2, 8) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="a_bits"):
+        tops.quant_dense(x, tq, lut=True)
+    with pytest.raises(ValueError, match="bits <= 4"):
+        tops.quant_dense(x, tq, a_bits=8, lut=True)
 
 
 def _pa_case(bits, *, lq, b=2, kvh=2, gq=2, d=32, gs=16, ps=4, pps=4):
