@@ -381,7 +381,9 @@ def _engine_class():
 
         def prefill_logits(self, pool, tokens, page_ids):
             t0 = time.perf_counter()
-            # the bucket's rows past the prompt are padding
+            # the bucket's rows past the prompt are padding, whose outputs
+            # no one reads (the logits are the prompt's last row's)
+            self.kind = "prefill"
             self.live = torch.arange(self.pcfg.max_context) < len(tokens)
             out = super().prefill_logits(pool, tokens, page_ids)
             self._check(out, slice(None), "prefill")
@@ -391,6 +393,7 @@ def _engine_class():
         def decode_logits(self, pool, tokens, page_table, pos):
             t0 = time.perf_counter()
             # slots without a request attend over the scratch page
+            self.kind = "decode"
             self.live = torch.as_tensor(np.asarray(page_table)[:, 0] != 0)
             out = super().decode_logits(pool, tokens, page_table, pos)
             self._check(out, self.live.to(out.device), "decode")
@@ -633,21 +636,25 @@ class ActQuantTap:
     """Wraps ``ops.act_quant`` (what ``quant_dense`` calls) for one run.
 
     ``record``: keeps every call's input and outputs on the host, in call
-    order.  ``compare``: the call keeps its own outputs, and each is
-    compared with the reference record at the same place.  ``share``: as
-    ``compare``, then the call returns the reference's outputs, so the
-    forward goes on from the reference's codes and every difference that
-    reaches a later call is f32 noise, not a flipped code's wake.
+    order.  ``share``: each call's own outputs are compared with the
+    reference record at the same place, then the call returns the
+    reference's outputs, so the forward goes on from the reference's
+    codes and every difference that reaches a later call is f32 noise,
+    not a flipped code's wake.
 
     Per compared call, over the rows of live requests (``engine.live``:
     the prompt's rows of a prefill bucket, the busy slots of a decode
-    step; the other rows read the scratch page, whose contents the two
-    devices write in different orders, and reach no output): codes that
-    differ, their largest difference, and the flips that the two sides'
+    step): codes that differ, their largest difference, and the flips that the two sides'
     measured input noise predicts, E = sum_i min(1, |u_i - u'_i|) over
     u = (x - zmin) / scale: a code flips when a rounding boundary lies
     between u and u', which for a fractional part spread evenly happens
-    with probability |u - u'|."""
+    with probability |u - u'|.  The other rows reach no output, and their
+    differing codes are counted apart by the kind of call: a prefill
+    bucket's padding rows (pad tokens past the prompt; prefill attends in
+    plain PyTorch over the bucket, and only the prompt's last row's
+    logits are read) and a decode step's idle slots (their page-table
+    rows point at the scratch page, which idle slots and padding write
+    in an order that differs between the devices)."""
 
     def __init__(self, mode, engine, reference=None):
         self.mode, self.engine, self.reference = mode, engine, reference
@@ -669,11 +676,10 @@ class ActQuantTap:
             self.records.append(host)
             return out
         ref = self.reference[len(self.stats)]
-        self.stats.append(self._compare(host, ref, self.engine.live, bits,
-                                        group_size))
-        if self.mode == "share":
-            return tuple(t.to(x.device) for t in ref[1:])
-        return out
+        self.stats.append({"kind": self.engine.kind,
+                           **self._compare(host, ref, self.engine.live,
+                                           bits, group_size)})
+        return tuple(t.to(x.device) for t in ref[1:])
 
     @staticmethod
     def _compare(got, ref, live, bits, gs) -> dict:
@@ -690,7 +696,9 @@ class ActQuantTap:
         return {"codes": du.numel(), "differ": int((diff[live] > 0).sum()),
                 "max_diff": int(diff[live].max()),
                 "expected": float(du.clamp_max(1.0).sum()),
-                "dead_rows_differ": int((diff[~live] > 0).sum())}
+                "dead_differ": int((diff[~live] > 0).sum()),
+                "dead_max_diff": int(diff[~live].max()) if (~live).any()
+                else 0}
 
 
 def _code_summary(stats) -> dict:
@@ -700,7 +708,10 @@ def _code_summary(stats) -> dict:
     return {"calls": len(stats), "codes": n, "differ": d, "share": d / n,
             "max_diff": max(s["max_diff"] for s in stats),
             "expected_flips": e,
-            "dead_rows_differ": sum(s["dead_rows_differ"] for s in stats),
+            "dead_rows": {k: {"differ": sum(s["dead_differ"] for s in of),
+                              "max_diff": max(s["dead_max_diff"] for s in of)}
+                          for k in ("prefill", "decode")
+                          for of in [[s for s in stats if s["kind"] == k]]},
             "flip_bound": e + 4 * e ** 0.5 + 4}
 
 
@@ -708,72 +719,49 @@ def phase_parity_act(dev, cfg, params, prompts, scheme) -> dict:
     """Card against CPU under an activation-quantized scheme.
 
     The CPU run goes first, free running, and records every act_quant
-    call and the tokens each engine call emits.  Then two card runs:
-
-    shared  the card's act_quant runs (the kernel, on the card's inputs)
-            and is compared with the CPU's call at the same place, then
-            hands on the CPU's codes.  Gates: codes differ by at most 1,
-            no more often than the flips the measured input noise
-            predicts, E, plus 4 sqrt(E) + 4, and every call's
-            logits within PARITY_LOGIT_TOL.  lq8 runs free: its greedy
-            tokens must equal the CPU's; lq2_lut is teacher-forced on the
-            CPU's tokens.
-    free    teacher-forced, the card's own codes all the way.  A code that
-            flips at a tie moves its row, at 2 bits by a third of its
-            region's range, and later act_quant calls of the same forward
-            then flip in its wake; the counts are reported.  Gate: every
-            logit call none of whose act_quant codes differ keeps
-            PARITY_LOGIT_TOL."""
+    call and the tokens each engine call emits.  Then the card runs: its
+    act_quant runs (the kernel, on the card's inputs), is compared with
+    the CPU's call at the same place, then hands on the CPU's codes.
+    Gates: codes differ by at most 1, no more often than the flips the
+    measured input noise predicts, E, plus 4 sqrt(E) + 4, and every
+    call's logits within PARITY_LOGIT_TOL.  lq8 runs free: its greedy
+    tokens must equal the CPU's; lq2_lut is teacher-forced on the CPU's
+    tokens (at 2 bits one flipped code moves its row by a third of its
+    region's range, enough to change a greedy token)."""
     from repro_torch.models import transformer
     per_call = 7 * cfg.n_layers            # act_quant calls per logit call
     cpu_engine = make_engine(cfg, params, scheme, torch.device("cpu"),
                              record=True)
     with ActQuantTap("record", cpu_engine) as ref:
         _, c_out, _ = serve(cpu_engine, prompts=prompts, new_tokens=8)
-    c_log = cpu_engine.logits
-    card_params = transformer.params_to(params, dev)
+    forced = None if scheme == "lq8" else cpu_engine.emitted
+    engine = make_engine(cfg, transformer.params_to(params, dev), scheme,
+                         dev, record=True, forced=forced)
+    with ActQuantTap("share", engine, ref.records) as tap:
+        _, g_out, _ = serve(engine, prompts=prompts, new_tokens=8)
+    diffs = _logit_diffs(engine.logits, cpu_engine.logits)
+    if len(tap.stats) != per_call * len(diffs):
+        raise AssertionError(f"{len(tap.stats)} act_quant calls for "
+                             f"{len(diffs)} logit calls")
     row = {"phase": "parity", "scheme": scheme, "layers": cfg.n_layers,
            "d_model": cfg.d_model, "dtype": "float32",
-           "requests": len(prompts), "tolerance": PARITY_LOGIT_TOL}
-    for mode in ("shared", "free"):
-        forced = None if (mode == "shared" and scheme == "lq8") \
-            else cpu_engine.emitted
-        engine = make_engine(cfg, card_params, scheme, dev, record=True,
-                             forced=forced)
-        with ActQuantTap("share" if mode == "shared" else "compare",
-                         engine, ref.records) as tap:
-            _, g_out, _ = serve(engine, prompts=prompts, new_tokens=8)
-        diffs = _logit_diffs(engine.logits, c_log)
-        if len(tap.stats) != per_call * len(diffs):
-            raise AssertionError(f"{len(tap.stats)} act_quant calls for "
-                                 f"{len(diffs)} logit calls")
-        clean = [d for i, d in enumerate(diffs) if not any(
-            s["differ"] for s in tap.stats[i * per_call:(i + 1) * per_call])]
-        row[mode] = {**_code_summary(tap.stats),
-                     "teacher_forced": forced is not None,
-                     "tokens_identical": g_out == c_out,
-                     "logit_calls": len(diffs),
-                     "max_abs_logit_diff": max(diffs),
-                     "calls_without_differing_codes": len(clean),
-                     "max_abs_logit_diff_of_those": max(clean, default=0.0),
-                     "per_call": [[k, d] for (k, _), d
-                                  in zip(engine.logits, diffs)]}
+           "requests": len(prompts), "tolerance": PARITY_LOGIT_TOL,
+           **_code_summary(tap.stats),
+           "teacher_forced": forced is not None,
+           "tokens_identical": g_out == c_out,
+           "logit_calls": len(diffs), "max_abs_logit_diff": max(diffs),
+           "per_call": [[k, d] for (k, _), d in zip(engine.logits, diffs)]}
     emit(row)
-    sh, fr = row["shared"], row["free"]
-    if not sh["tokens_identical"]:
+    if not row["tokens_identical"]:
         raise AssertionError(f"{scheme}: greedy tokens differ between card "
                              f"and CPU")
-    if sh["max_diff"] > 1 or sh["differ"] > sh["flip_bound"]:
+    if row["max_diff"] > 1 or row["differ"] > row["flip_bound"]:
         raise AssertionError(f"{scheme}: act_quant codes differ by up to "
-                             f"{sh['max_diff']} on {sh['differ']} codes "
-                             f"(bound {sh['flip_bound']:.1f})")
-    if sh["max_abs_logit_diff"] > PARITY_LOGIT_TOL:
+                             f"{row['max_diff']} on {row['differ']} codes "
+                             f"(bound {row['flip_bound']:.1f})")
+    if row["max_abs_logit_diff"] > PARITY_LOGIT_TOL:
         raise AssertionError(f"{scheme}: logits from shared codes differ by "
-                             f"{sh['max_abs_logit_diff']}")
-    if fr["max_abs_logit_diff_of_those"] > PARITY_LOGIT_TOL:
-        raise AssertionError(f"{scheme}: a call without differing codes has "
-                             f"logits {fr['max_abs_logit_diff_of_those']} "
-                             f"apart")
+                             f"{row['max_abs_logit_diff']}")
     return row
 
 
@@ -1009,6 +997,10 @@ def main() -> int:
         phase_parity_act(dev, pcfg, pparams, prompts, scheme)
     timing = phase_timing(serves, dev)
     by_scheme = {sc: sv["row"]["launches"] for sc, sv in serves.items()}
+    # ``launches`` is one path's count: the path of the slice that ported
+    # the kernel; the other paths' counts are in launches_by_scheme
+    path = {"quant_matmul": "lq4w", "paged_attention": "lq4w",
+            "act_quant": "lq2_lut", "lut_matmul": "lq2_lut"}
     csrc = "src/repro_torch/kernels/csrc"
     replaces = {"quant_matmul": "src/repro/kernels/quant_matmul.py:121",
                 "paged_attention": "src/repro/kernels/paged_attention.py:341",
@@ -1018,7 +1010,7 @@ def main() -> int:
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
          "replaces": replaces[name],
-         "launches": sum(ln[name] for ln in by_scheme.values()),
+         "launches": by_scheme[path[name]][name], "path": path[name],
          "launches_by_scheme": {sc: ln[name] for sc, ln in by_scheme.items()},
          "max_abs_err": checks[name]["max_abs_err"],
          "max_rel_err": checks[name]["max_rel_err"],

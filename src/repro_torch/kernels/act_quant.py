@@ -25,7 +25,7 @@ from . import build
 from . import ref as _ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
-GROUP_SIZES = (32, 64, 128, 256)     # one warp per region, 1-8 per lane
+GROUP_SIZE = 128      # the kernel's region: one warp, 4 values per lane
 
 
 def plain(x, *, bits: int, group_size: int):
@@ -36,7 +36,7 @@ def plain(x, *, bits: int, group_size: int):
 @functools.cache
 def _entry():
     fn = build.library("act_quant").repro_act_quant
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -54,9 +54,9 @@ def act_quant(x, *, bits: int, group_size: int):
         return plain(x, bits=bits, group_size=group_size)
     if x.dtype not in _DTYPES:
         raise TypeError(f"act_quant kernel takes f32/bf16 x, got {x.dtype}")
-    if group_size not in GROUP_SIZES:
-        raise ValueError(f"act_quant kernel takes group_size in "
-                         f"{GROUP_SIZES}, got {group_size}")
+    if group_size != GROUP_SIZE:
+        raise ValueError(f"act_quant kernel takes group_size={GROUP_SIZE}, "
+                         f"got {group_size}")
     x = x.contiguous()
     g = k // group_size
     packed = torch.empty((m, k // packing.codes_per_byte(bits)),
@@ -66,7 +66,7 @@ def act_quant(x, *, bits: int, group_size: int):
     with torch.cuda.device(x.device):
         status = _entry()(
             x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-            zmin.data_ptr(), m, k, bits, group_size,
+            zmin.data_ptr(), m, k, bits,
             int(x.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream)
     build.check(status, "act_quant")

@@ -2,12 +2,13 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/act_quant.py:act_quant
 // (body _kernel).  x (M, K) is f32 or bf16.  For each row and each region
-// of group_size values along K: min and max, scale = (max - min) / levels
+// of 128 values along K (the group size of every registered scheme): min
+// and max, scale = (max - min) / levels
 // (1 where the range is 0, levels = 2^bits - 1), zmin = min, then codes
 // round_half_even((x - min) / scale) clipped to [0, levels], packed along K
 // as core/packing.py packs them: code j of a byte at shift (j % cpb) * bits
 // for bits 1/2/4, one code per byte otherwise.  Outputs packed (M, K/cpb)
-// uint8, scale and zmin (M, K/group_size) f32.
+// uint8, scale and zmin (M, K/128) f32.
 //
 // The codes must equal the plain version's byte for byte, on the card and
 // on the CPU: a code at a rounding boundary flips if the step or the
@@ -19,11 +20,10 @@
 // 8192) one call moves a few KB, far below what a microsecond of memory
 // traffic carries; at prefill (M = 176) it is bound by bytes (x read once,
 // a quarter to a sixteenth of it written back).  Design: one warp per
-// (row, region), 1-8 values per lane held in registers (group_size 32-256),
-// min/max by shuffle reductions, so x is read once and nothing but the
-// outputs is written.  Where a byte holds the codes of several lanes
-// (1 bit at 4 values per lane: 8 codes, two lanes) the lanes OR their
-// parts together with shuffles and the first of them stores the byte.
+// (row, region), 4 values per lane held in registers, min/max by shuffle reductions, so x is read once and nothing but the
+// outputs is written.  At 1 bit a byte holds the 8 codes of two lanes:
+// the lanes OR their parts together with a shuffle and the first of them
+// stores the byte.
 #include "common.cuh"
 
 namespace repro_torch {
@@ -31,15 +31,16 @@ namespace {
 
 constexpr int WARPS = 8;               // (row, region) tasks per block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int VPL = 4;                 // values per lane
+constexpr int GS = 32 * VPL;           // the region: 128 values
 
-template <int BITS, int VPL, typename T>
+template <int BITS, typename T>
 __global__ void __launch_bounds__(32 * WARPS)
 act_quant_kernel(const T* __restrict__ x, uint8_t* __restrict__ packed,
                  float* __restrict__ scale, float* __restrict__ zmin, int M,
                  int K) {
   constexpr int CPB = codes_per_byte<BITS>();
   constexpr int LEVELS = (1 << BITS) - 1;
-  constexpr int GS = 32 * VPL;
   const int lane = threadIdx.x & 31;
   const int G = K / GS;
   const long long task = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
@@ -100,37 +101,27 @@ act_quant_kernel(const T* __restrict__ x, uint8_t* __restrict__ packed,
 
 template <int BITS, typename T>
 int launch(const void* x, void* packed, void* scale, void* zmin, int M, int K,
-           int group_size, cudaStream_t stream) {
-  const long long tasks = (long long)M * (K / group_size);
+           cudaStream_t stream) {
+  const long long tasks = (long long)M * (K / GS);
   const dim3 grid((unsigned)((tasks + WARPS - 1) / WARPS));
-  const dim3 block(32 * WARPS);
-  const auto* px = static_cast<const T*>(x);
-  auto* pp = static_cast<uint8_t*>(packed);
-  auto* ps = static_cast<float*>(scale);
-  auto* pz = static_cast<float*>(zmin);
-  switch (group_size) {
-    case 32: act_quant_kernel<BITS, 1, T><<<grid, block, 0, stream>>>(px, pp, ps, pz, M, K); break;
-    case 64: act_quant_kernel<BITS, 2, T><<<grid, block, 0, stream>>>(px, pp, ps, pz, M, K); break;
-    case 128: act_quant_kernel<BITS, 4, T><<<grid, block, 0, stream>>>(px, pp, ps, pz, M, K); break;
-    case 256: act_quant_kernel<BITS, 8, T><<<grid, block, 0, stream>>>(px, pp, ps, pz, M, K); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
+  act_quant_kernel<BITS, T><<<grid, 32 * WARPS, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<uint8_t*>(packed),
+      static_cast<float*>(scale), static_cast<float*>(zmin), M, K);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_bits(int bits, const void* x, void* packed, void* scale,
-                  void* zmin, int M, int K, int group_size,
-                  cudaStream_t stream) {
+                  void* zmin, int M, int K, cudaStream_t stream) {
   switch (bits) {
-    case 1: return launch<1, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 2: return launch<2, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 3: return launch<3, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 4: return launch<4, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 5: return launch<5, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 6: return launch<6, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 7: return launch<7, T>(x, packed, scale, zmin, M, K, group_size, stream);
-    case 8: return launch<8, T>(x, packed, scale, zmin, M, K, group_size, stream);
+    case 1: return launch<1, T>(x, packed, scale, zmin, M, K, stream);
+    case 2: return launch<2, T>(x, packed, scale, zmin, M, K, stream);
+    case 3: return launch<3, T>(x, packed, scale, zmin, M, K, stream);
+    case 4: return launch<4, T>(x, packed, scale, zmin, M, K, stream);
+    case 5: return launch<5, T>(x, packed, scale, zmin, M, K, stream);
+    case 6: return launch<6, T>(x, packed, scale, zmin, M, K, stream);
+    case 7: return launch<7, T>(x, packed, scale, zmin, M, K, stream);
+    case 8: return launch<8, T>(x, packed, scale, zmin, M, K, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -139,15 +130,14 @@ int dispatch_bits(int bits, const void* x, void* packed, void* scale,
 }  // namespace repro_torch
 
 // C interface, bound with ctypes.  Returns cudaGetLastError() after the
-// launch (0 = launched).  x_bf16 selects bf16 x (else f32).
+// launch (0 = launched).  x_bf16 selects bf16 x (else f32); K is a
+// multiple of 128.
 extern "C" int repro_act_quant(const void* x, void* packed, void* scale,
-                               void* zmin, int M, int K, int bits,
-                               int group_size, int x_bf16, void* stream) {
+                               void* zmin, int M, int K, int bits, int x_bf16,
+                               void* stream) {
   using namespace repro_torch;
   auto s = static_cast<cudaStream_t>(stream);
   if (x_bf16)
-    return dispatch_bits<__nv_bfloat16>(bits, x, packed, scale, zmin, M, K,
-                                        group_size, s);
-  return dispatch_bits<float>(bits, x, packed, scale, zmin, M, K, group_size,
-                              s);
+    return dispatch_bits<__nv_bfloat16>(bits, x, packed, scale, zmin, M, K, s);
+  return dispatch_bits<float>(bits, x, packed, scale, zmin, M, K, s);
 }
