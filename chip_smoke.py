@@ -8,7 +8,9 @@ Phases, each printed as one JSON line:
   build    nvcc builds of the four kernels from src/repro_torch/kernels/csrc
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the main paths' shapes: quant_matmul, paged_attention and
-           lut_matmul within computed error bounds, act_quant byte for byte
+           lut_matmul within computed error bounds, act_quant byte for byte;
+           quant_matmul also gives the same bytes twice and from a CUDA
+           graph replay
   serve    llama3.2-1b at its published widths (random weights from a
            seed) through the port's Server, 4-bit paged KV, fused
            attention, bf16, under three schemes: lq4w (weight-only,
@@ -21,7 +23,9 @@ Phases, each printed as one JSON line:
            (greedy tokens identical, logits within a stated tolerance),
            then lq8 and lq2_lut, whose act_quant codes are compared call by
            call (see phase_parity_act)
-  timing   CUDA-event times of each kernel, its plain version and a library
+  timing   CUDA-event times of each kernel (device time from CUDA-graph
+           replays where the kernel is shorter than its wrapper's host
+           work: quant_matmul, act_quant), its plain version and a library
            call computing the same function, beside the card's bound
 
 then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
@@ -134,13 +138,17 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     paths = build.build_all()
     dt = time.perf_counter() - t0
-    spills = {n: len(re.findall(r"[1-9][0-9]* bytes spill stores",
-                                p.with_suffix(".log").read_text()))
-              if p.with_suffix(".log").exists() else None
-              for n, p in paths.items()}
+    logs = {n: p.with_suffix(".log").read_text()
+            if p.with_suffix(".log").exists() else ""
+            for n, p in paths.items()}
     emit({"phase": "build", "seconds": dt,
           "libraries": {n: p.name for n, p in paths.items()},
-          "kernels_with_spills": spills})
+          "kernels_with_spills": {
+              n: len(re.findall(r"[1-9][0-9]* bytes spill stores", log))
+              for n, log in logs.items()},
+          "max_registers": {
+              n: max(map(int, re.findall(r"Used (\d+) registers", log)),
+                     default=None) for n, log in logs.items()}})
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +156,11 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 def check_quant_matmul(dev) -> dict:
+    """The kernel within ``quant_matmul.error_bound`` of the plain version
+    at the decode rows (M 1, 4, 7, 16: the split-K kernel, 7 a ragged tile)
+    and the prefill bucket (the one-pass kernel), the 4-bit main-path
+    shapes and a ragged N; every case is also called twice and replayed
+    from a CUDA graph, and must give the same bytes each time."""
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -156,7 +169,7 @@ def check_quant_matmul(dev) -> dict:
     main = [(2048, 2048), (2048, 512), (2048, 8192), (8192, 2048)]
     for bits in (1, 2, 3, 4, 8):
         for dtype in (torch.float32, torch.bfloat16):
-            for m in (1, 4, MAX_CONTEXT):
+            for m in (1, 4, 7, 16, MAX_CONTEXT):
                 todo = shapes + ([(k, n, 128) for k, n in main]
                                  if bits == 4 else [])
                 for k, n, gs in todo:
@@ -165,19 +178,34 @@ def check_quant_matmul(dev) -> dict:
                     x = torch.randn((m, k), generator=gen,
                                     device=dev).to(dtype)
                     packed, scale, zmin = ref.quantize_weight(w, bits, gs)
-                    got = qm.quant_matmul(x, packed, scale, zmin, bits=bits,
-                                          group_size=gs)
+
+                    def call():
+                        return qm.quant_matmul(x, packed, scale, zmin,
+                                               bits=bits, group_size=gs)
+                    got = call()
                     want = qm.plain(x, packed, scale, zmin, bits=bits,
                                     group_size=gs)
+                    again = call()
+                    graph = torch.cuda.CUDAGraph()
+                    with torch.cuda.graph(graph):
+                        replayed = call()
+                    replayed.zero_()
+                    graph.replay()
                     torch.cuda.synchronize()
+                    where = (f"quant_matmul bits={bits} {dtype} M={m} K={k}"
+                             f" N={n}")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{where}: two calls differ")
+                    if not torch.equal(got, replayed):
+                        raise AssertionError(f"{where}: graph replay differs "
+                                             f"from the eager call")
                     wd = ref.dequantize_weight(packed, scale, zmin, bits, gs)
                     tol = qm.error_bound(x, wd, want)
                     err = (got.float() - want.float()).abs()
                     ratio = float((err / tol.clamp_min(1e-30)).max())
                     if not bool((err <= tol).all()):
                         raise AssertionError(
-                            f"quant_matmul bits={bits} {dtype} M={m} K={k} "
-                            f"N={n}: max err {float(err.max())}, "
+                            f"{where}: max err {float(err.max())}, "
                             f"{ratio:.2f}x the bound")
                     worst["abs"] = max(worst["abs"], float(err.max()))
                     worst["rel"] = max(worst["rel"], float(
@@ -185,7 +213,8 @@ def check_quant_matmul(dev) -> dict:
                     worst["ratio"] = max(worst["ratio"], ratio)
                     cases += 1
     return {"cases": cases, "max_abs_err": worst["abs"],
-            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"]}
+            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"],
+            "deterministic": True, "graph_replay_equal": True}
 
 
 def paged_case(dev, bits, dtype, lq, gen):
@@ -769,10 +798,30 @@ def phase_parity_act(dev, cfg, params, prompts, scheme) -> dict:
 # phase: timing
 # ---------------------------------------------------------------------------
 
+def kernel_split_us(fn, calls: int = 20) -> dict:
+    """Mean device us per call of each kernel ``fn`` launches (eager calls
+    under torch.profiler), keyed by the kernel's name: the split-K kernel
+    and its reduction, or the one-pass kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {(re.findall(r"\w+_kernel", e.key) or [e.key[:40]])[0]:
+            e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def time_quant_matmul(engine, cfg) -> dict:
     """One decode step's worth of projections (7 per layer, every layer's
     own weights, so the weights stream from memory as on the path) at M =
-    max_slots, bf16 x; per-layer times are that over the layer count."""
+    max_slots, bf16 x; per-layer times are that over the layer count.
+    ``ms``, ``library_ms`` and ``per_projection_hot_l2`` are device time
+    from CUDA-graph replays; ``eager_ms`` is the same calls in an eager
+    loop, which the wrapper's host work paces once the kernel is short;
+    ``kernel_us`` splits a projection's call between its kernels."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     dev = engine.device
@@ -802,21 +851,27 @@ def time_quant_matmul(engine, cfg) -> dict:
             for w in row:
                 torch.matmul(xs[w.shape[0]], w)
 
+    def one(qw):
+        return lambda: qm.quant_matmul(xs[qw.k], qw.packed, qw.scale,
+                                       qw.zmin, bits=qw.bits,
+                                       group_size=qw.group_size)
+
     labels = ("q", "k", "v", "o", "gate", "up", "down")
-    per_proj = {lab: {"K": qw.k, "N": qw.n, "ms": cuda_time(
-        lambda qw=qw: qm.quant_matmul(
-            xs[qw.k], qw.packed, qw.scale, qw.zmin, bits=qw.bits,
-            group_size=qw.group_size), 200)}
-        for lab, qw in zip(labels, qws[0])}
+    per_proj = {lab: {"K": qw.k, "N": qw.n,
+                      "plan": list(qm.plan(SLOTS, qw.k, qw.n, qw.bits)),
+                      "ms": graph_time(one(qw)),
+                      "kernel_us": kernel_split_us(one(qw))}
+                for lab, qw in zip(labels, qws[0])}
     n_layers = len(qws)
     nbytes = flops = 0
     for qw in qws[0]:
         nbytes += (qw.nbytes() + SLOTS * qw.k * 2 + SLOTS * qw.n * 2)
         flops += 2 * SLOTS * qw.k * qw.n
     b_ms, b_by = bound(nbytes, flops)
-    return {"ms": cuda_time(kernel, 20) / n_layers,
+    return {"ms": graph_time(kernel, reps=2, iters=20) / n_layers,
+            "eager_ms": cuda_time(kernel, 20) / n_layers,
             "plain_ms": cuda_time(plain, 3, warmup=1) / n_layers,
-            "library_ms": cuda_time(library, 20) / n_layers,
+            "library_ms": graph_time(library, reps=2, iters=20) / n_layers,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"one layer's 7 projections at M={SLOTS}, bf16 x, "
                      f"lq4w (K,N) as in per_projection; timed over all "

@@ -1,10 +1,13 @@
-"""Fused dequantize-matmul: the CUDA kernel ``csrc/quant_matmul.cu``, its
-wrapper, its launch count and its plain version.
+"""Fused dequantize-matmul: the CUDA kernels ``csrc/quant_matmul.cu``,
+their wrapper, its launch count and its plain version.
 
 Port of ``repro/kernels/quant_matmul.py``.  ``quant_matmul`` sends a CPU
-tensor to :func:`plain` and a CUDA tensor to the kernel; a CUDA tensor the
-kernel does not take raises.  ``quant_matmul.launches`` counts kernel
-launches (and nothing else).
+tensor to :func:`plain` and a CUDA tensor to a kernel chosen by M
+(:func:`plan`): up to ``DECODE_M`` rows (every decode step) the split-K
+kernel and its fixed-order reduction, above it (the prefill bucket) the
+one-pass kernel.  A CUDA tensor the kernels do not take raises.
+``quant_matmul.launches`` counts wrapper calls that launched (one per
+call, whichever route).
 """
 from __future__ import annotations
 
@@ -18,6 +21,11 @@ from . import build
 from . import ref as _ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
+DECODE_M = 16                    # rows up to which the split-K kernel runs
+SMS = 132                        # streaming multiprocessors of an H100 SXM
+TARGET_BLOCKS = 2 * SMS          # split-K grid: two blocks per SM
+X_SMEM_BYTES = 32 * 1024         # a block's f32 slice of x in shared memory
+LANES_N = 16                     # threads across N per block (csrc: TX)
 F32_U = 2.0 ** -24               # unit roundoff of float32
 BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
 
@@ -52,6 +60,44 @@ def _entry():
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _splitk_entry():
+    fn = build.library("quant_matmul").repro_quant_matmul_splitk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def plan(m: int, k: int, n: int, bits: int) -> tuple[int, int, int]:
+    """The launch of an (M, K) @ (K, N) product: ``(bm, vec, splits)``.
+
+    M <= DECODE_M: the split-K kernel, a block of BM = ``bm`` rows by
+    ``LANES_N * vec`` columns (each thread loads ``vec`` bytes of a packed
+    row at once) over one of ``splits`` contiguous ranges of packed rows
+    (:func:`split_rows`).  ``splits`` gives the grid as many blocks as
+    fit TARGET_BLOCKS (at least SMS while N has fewer strips than that)
+    where K has enough packed rows, and keeps a block's f32 slice of x
+    within X_SMEM_BYTES.  M > DECODE_M: ``(16, 1, 1)``, the one-pass
+    kernel (16-row tiles, one byte per lane, no split)."""
+    if m > DECODE_M:
+        return 16, 1, 1
+    bm = 4 if m <= 4 else 16
+    vec = 16 if bm == 4 else 8
+    rows = k // packing.codes_per_byte(bits)
+    strips = -(-n // (LANES_N * vec))
+    splits = max(TARGET_BLOCKS // strips, 1,
+                 -(-k * 4 * bm // X_SMEM_BYTES))
+    return bm, vec, min(splits, rows)
+
+
+def split_rows(rows: int, splits: int) -> list[tuple[int, int]]:
+    """The packed-row range ``[lo, hi)`` of each split, as the kernel
+    computes it: ``lo = s * rows // splits``."""
+    return [(s * rows // splits, (s + 1) * rows // splits)
+            for s in range(splits)]
 
 
 def check_k(k: int, group_size: int) -> None:
@@ -89,12 +135,27 @@ def quant_matmul(x, packed, scale, zmin, *, bits: int, group_size: int):
         raise ValueError("quant_matmul operands lie on different devices")
     x, packed, scale, zmin = (t.contiguous() for t in tensors)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    bm, vec, splits = plan(m, k, n, bits)
+    bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
-        status = _entry()(
-            x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
-            zmin.data_ptr(), out.data_ptr(), m, k, n, bits, group_size,
-            int(x.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if m <= DECODE_M:
+            # f32 partial tiles of the splits, summed in a fixed order by
+            # the second kernel: no atomics, so every call gives the same
+            # bytes
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=x.device)
+            vec_ok = n % vec == 0 and all(
+                t.data_ptr() % 16 == 0 for t in (packed, scale, zmin))
+            status = _splitk_entry()(
+                x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                zmin.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n,
+                bits, group_size, bm, vec, splits, int(vec_ok), bf16, stream)
+        else:
+            status = _entry()(
+                x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
+                zmin.data_ptr(), out.data_ptr(), m, k, n, bits, group_size,
+                bf16, stream)
     build.check(status, "quant_matmul")
     quant_matmul.launches += 1
     return out

@@ -96,18 +96,49 @@ def lut_matmul(a_packed, a_scale, a_zmin, w, *, bits: int, group_size: int):
     return a @ w.to(torch.float32)
 
 
-def masked_attention(q, k, v, pos):
+ATTN_BLOCK = 256
+
+
+def masked_attention(q, k, v, pos, *, block: int = ATTN_BLOCK):
     """GQA attention with the position mask: q (B, Lq, KV, G, D) against
     k, v (B, S, KV, D).  ``pos`` is a scalar or (B,): query i of slot b sits
     at ``pos[b] + i`` and sees keys ``<= pos[b] + i`` (``pos`` 0 with S = Lq
-    is causal attention).  Scores and sums in f32, output in q's dtype."""
+    is causal attention).  Scores and sums in f32, output in q's dtype.
+
+    Blocked as the reference's ``flash_attention``: queries in blocks of
+    ``block`` rows, each walking K/V in blocks of ``block`` keys with an
+    online softmax, so no (Lq, S) score tensor and no f32 copy of the
+    whole K/V is ever built (one K/V block is upcast at a time).  Masked
+    scores are NEG_INF, as an unblocked softmax over ``where(valid, s,
+    NEG_INF)`` would see them."""
+    lq = q.shape[1]
+    return torch.cat([_attend_rows(q[:, i:i + block], k, v, pos, i, block)
+                      for i in range(0, lq, block)], dim=1)
+
+
+def _attend_rows(q, k, v, pos, q0: int, block: int):
+    """Rows ``q0 .. q0 + Lq`` of :func:`masked_attention`."""
     b, lq, _, _, d = q.shape
     posb = torch.as_tensor(pos, device=q.device).expand(b)
-    qpos = posb[:, None] + torch.arange(lq, device=q.device)       # (B, Lq)
-    valid = torch.arange(k.shape[1], device=q.device) <= qpos[..., None]
-    s = torch.einsum("bqkgd,bskd->bkgqs", q.to(torch.float32),
-                     k.to(torch.float32)) * (d ** -0.5)
-    s = torch.where(valid[:, None, None], s, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-    return out.to(q.dtype)
+    qpos = posb[:, None] + q0 + torch.arange(lq, device=q.device)  # (B, Lq)
+    qf = q.to(torch.float32)
+    m = l = acc = None
+    for s0 in range(0, k.shape[1], block):
+        kb = k[:, s0:s0 + block].to(torch.float32)
+        valid = (s0 + torch.arange(kb.shape[1], device=q.device)
+                 <= qpos[..., None])                                # (B,Lq,s)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kb) * (d ** -0.5)
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        m_new = s.amax(-1) if m is None else torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        pv = torch.einsum("bkgqs,bskd->bkgqd", p,
+                          v[:, s0:s0 + block].to(torch.float32))
+        if m is None:
+            l, acc = p.sum(-1), pv
+        else:
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / l[..., None]                                # (B,KV,G,Lq,D)
+    return out.permute(0, 3, 1, 2, 4).to(q.dtype)

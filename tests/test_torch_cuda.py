@@ -73,6 +73,66 @@ def test_quant_matmul_kernel_matches_plain(bits, dtype):
         assert bool(((got.float() - want.float()).abs() <= tol).all())
 
 
+# llama3.2-1b's projections (K, N): q k v o gate up down
+LLAMA_1B = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+            (2048, 8192), (2048, 8192), (8192, 2048))
+
+
+def _qm_case(m, k, n, bits, dtype, dev):
+    w = _t(RNG.normal(size=(k, n)).astype(np.float32) * k ** -0.5, dev)
+    x = _t(RNG.normal(size=(m, k)).astype(np.float32), dev).to(dtype)
+    return x, ops.quantize_weight(w, bits, 128)
+
+
+def _assert_qm_within_bound(x, qw, got):
+    want = qm.plain(x, qw.packed, qw.scale, qw.zmin, bits=qw.bits,
+                    group_size=128)
+    tol = qm.error_bound(x, ops.dequantize_weight(qw), want)
+    assert got.dtype == x.dtype and got.shape == want.shape
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 16])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quant_matmul_decode_kernel_at_llama_shapes(bits, m, dtype):
+    dev = _card()
+    for k, n in LLAMA_1B:
+        x, qw = _qm_case(m, k, n, bits, dtype, dev)
+        _assert_qm_within_bound(x, qw, ops.quant_matmul(x, qw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_quant_matmul_decode_kernel_at_ragged_n(bits):
+    """N that is no multiple of a thread's 16 or 8 columns takes the byte
+    path; 96 is a multiple of 16 short of one 256-column strip."""
+    dev = _card()
+    for m in (1, 7, 16):
+        for k, n in ((256, 70), (512, 33), (2048, 2024), (384, 96)):
+            x, qw = _qm_case(m, k, n, bits, torch.bfloat16, dev)
+            _assert_qm_within_bound(x, qw, ops.quant_matmul(x, qw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 7, 176])
+def test_quant_matmul_is_deterministic_and_replays(m):
+    """Two calls give the same bytes (the splits are summed in a fixed
+    order), and a CUDA graph replay of the call gives the eager call's."""
+    dev = _card()
+    x, qw = _qm_case(m, 2048, 512, 4, torch.bfloat16, dev)
+    got = ops.quant_matmul(x, qw)
+    assert torch.equal(got, ops.quant_matmul(x, qw))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = ops.quant_matmul(x, qw)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, replayed)
+
+
 def _pages(bits, dev, *, lq, b=3, kvh=2, gq=4, d=64, ps=16, pps=4):
     """Scratch page 0 full of garbage; slot tables padded onto it."""
     n_pages = b * pps + 1

@@ -9,7 +9,9 @@ Tolerances: both sides compute in f32.  quant_matmul sums K=256 products
 in another order (XLA vs PyTorch), ~sqrt(K)*2^-24 relative, so 1e-5 of
 the output scale; paged attention re-associates an online softmax over
 at most 64 keys, well inside 2e-5 (the JAX package's own bound for its
-kernel against its XLA path).  The act_quant and lut_matmul wrappers
+kernel against its XLA path).  The blocked ``masked_attention`` against
+one unblocked softmax: the same re-association, 2e-6 at unit-scale
+values.  The act_quant and lut_matmul wrappers
 are held to the JAX kernels in ``test_torch_act_kernels.py``.
 """
 import jax
@@ -158,3 +160,74 @@ def test_dequant_selector_validation_matches_jax():
     _, targs = _pa_case(4, lq=1)
     a = tpa.paged_attention(*targs, dequant="affine")
     assert torch.equal(a, tpa.paged_attention(*targs, dequant="lut"))
+
+
+def _unblocked_attention(q, k, v, pos):
+    """One softmax over every key, as ``masked_attention`` was before it was
+    blocked (the oracle of its blocking)."""
+    b, lq, _, _, d = q.shape
+    qpos = torch.as_tensor(pos).expand(b)[:, None] + torch.arange(lq)
+    valid = torch.arange(k.shape[1]) <= qpos[..., None]
+    s = torch.einsum("bqkgd,bskd->bkgqs", q, k) * d ** -0.5
+    p = torch.softmax(torch.where(valid[:, None, None], s, -1e30), dim=-1)
+    return torch.einsum("bkgqs,bskd->bqkgd", p, v)
+
+
+@pytest.mark.parametrize("lq,s,pos,block", [
+    (300, 300, 0, 256),                 # causal prefill over two blocks
+    (5, 77, [3, 60, 72], 16),           # ragged S, pos offsets, Lq > 1
+    (37, 200, [0, 100, 163], 32),       # query blocks and key blocks
+    (1, 176, [175, 10, 0], 64)])        # decode: one query per slot
+def test_masked_attention_blocked_matches_unblocked(lq, s, pos, block):
+    from repro.models import attention as jattn
+    from repro_torch.kernels import ref
+    q = RNG.normal(size=(3, lq, 2, 4, 16)).astype(np.float32)
+    k = RNG.normal(size=(3, s, 2, 16)).astype(np.float32)
+    v = RNG.normal(size=(3, s, 2, 16)).astype(np.float32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tpos = torch.as_tensor(pos)
+    got = ref.masked_attention(tq, tk, tv, tpos, block=block)
+    np.testing.assert_allclose(got.numpy(),
+                               _unblocked_attention(tq, tk, tv, tpos).numpy(),
+                               rtol=0, atol=2e-6)
+    want = jattn.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(pos))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=2e-6)
+
+
+# llama3.2-1b's projections (K, N): q k v o gate up down
+LLAMA_1B = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+            (2048, 8192), (2048, 8192), (8192, 2048))
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 4, 7, 16])
+def test_quant_matmul_plan_fills_the_card_at_decode(m, bits):
+    """Every llama3.2-1b projection launches at least one block per SM at
+    decode, and a block's slice of x fits its shared-memory budget."""
+    for k, n in LLAMA_1B:
+        bm, vec, splits = tqm.plan(m, k, n, bits)
+        assert bm >= m and (bm, vec) in ((4, 16), (16, 8))
+        strips = -(-n // (tqm.LANES_N * vec))       # the grid's columns
+        assert strips * splits >= tqm.SMS
+        rows = k // (8 // bits if bits in (1, 2, 4) else 1)
+        widest = max(hi - lo for lo, hi in tqm.split_rows(rows, splits))
+        assert widest * (k // rows) * bm * 4 <= tqm.X_SMEM_BYTES
+
+
+@pytest.mark.parametrize("rows,splits", [(1024, 132), (4096, 33), (1024, 9),
+                                         (7, 7), (64, 1), (1000, 3)])
+def test_quant_matmul_splits_cover_k_once(rows, splits):
+    ranges = tqm.split_rows(rows, splits)
+    assert len(ranges) == splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == rows
+    assert all(lo < hi for lo, hi in ranges)                  # none empty
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_quant_matmul_plan_keeps_prefill_on_the_old_kernel():
+    for k, n in LLAMA_1B:
+        for m in (17, 176):
+            assert tqm.plan(m, k, n, 4) == (16, 1, 1)
+        assert tqm.plan(16, k, n, 4)[2] > 1

@@ -214,3 +214,32 @@ def test_prefill_and_paged_decode_match_jax(weights, scheme, kv_bits):
         np.testing.assert_allclose(tl[0].numpy(), np.asarray(jl)[0],
                                    rtol=0, atol=LOGIT_TOL)
         _assert_pools_close(jpg, tpg, kv_bits)
+
+
+@pytest.mark.parametrize("scheme", [None, "lq4w"])
+def test_long_prefill_matches_jax(weights, scheme):
+    """A 300-token prompt: the port's prefill attends over two key and two
+    query blocks of ``ref.ATTN_BLOCK`` (the reference over one of its own),
+    so blocking is held to JAX at the logits tolerance."""
+    from repro_torch.kernels import ref
+    jp, tp = weights
+    if scheme:
+        jp = jt.quantize_params(jp, JCFG, jschemes.get(scheme))
+        tp = tt.quantize_params(tp, TCFG, scheme)
+        jpol = JPolicy.serve(scheme, backend="ref")
+        tpol = TPolicy.serve(scheme)
+    else:
+        jpol, tpol = J_NO_QUANT, T_NO_QUANT
+    bucket, n_tok = 320, 300
+    assert n_tok > ref.ATTN_BLOCK
+    toks = np.zeros((1, bucket), np.int32)
+    toks[0, :n_tok] = np.random.default_rng(5).integers(0, 256, n_tok)
+    jc = jt.init_cache(JCFG, 1, bucket)
+    jlog, _ = jax.jit(lambda p, t, c: jt.prefill(
+        p, JCFG, {"tokens": t}, c, policy=jpol, logits_pos=n_tok - 1))(
+            jp, jnp.asarray(toks), jc)
+    tlog, _ = tt.prefill(tp, TCFG, torch.from_numpy(toks).long(),
+                         tt.init_cache(TCFG, 1, bucket), policy=tpol,
+                         logits_pos=n_tok - 1)
+    np.testing.assert_allclose(tlog.numpy(), np.asarray(jlog), rtol=0,
+                               atol=LOGIT_TOL)
