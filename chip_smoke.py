@@ -821,35 +821,53 @@ def time_quant_matmul(engine, cfg) -> dict:
     ``ms``, ``library_ms`` and ``per_projection_hot_l2`` are device time
     from CUDA-graph replays; ``eager_ms`` is the same calls in an eager
     loop, which the wrapper's host work paces once the kernel is short;
-    ``kernel_us`` splits a projection's call between its kernels."""
+    ``kernel_us`` splits a projection's call between its kernels.
+    ``at_m16`` times the same at M = 16, the split-K kernel's other tile
+    (BM 16), against ``torch.matmul`` and its own bound."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import quant_matmul as qm
     dev = engine.device
     qws = [[lay[a][b]["w"] for a, b in PROJECTION_NAMES]
            for lay in engine.params["layers"]]
+    n_layers = len(qws)
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    xs = {qw.k: torch.randn((SLOTS, qw.k), generator=gen,
-                            device=dev).to(torch.bfloat16)
-          for qw in qws[0]}
     wd = [[ops.dequantize_weight(qw, torch.bfloat16) for qw in row]
           for row in qws]
 
-    def kernel():
-        for row in qws:
-            for qw in row:
-                qm.quant_matmul(xs[qw.k], qw.packed, qw.scale, qw.zmin,
-                                bits=qw.bits, group_size=qw.group_size)
+    def inputs(m):
+        return {qw.k: torch.randn((m, qw.k), generator=gen,
+                                  device=dev).to(torch.bfloat16)
+                for qw in qws[0]}
+
+    def kernel(xs):
+        def run():
+            for row in qws:
+                for qw in row:
+                    qm.quant_matmul(xs[qw.k], qw.packed, qw.scale, qw.zmin,
+                                    bits=qw.bits, group_size=qw.group_size)
+        return run
+
+    def library(xs):
+        def run():
+            for row in wd:
+                for w in row:
+                    torch.matmul(xs[w.shape[0]], w)
+        return run
+
+    def layer_bound(m):
+        nbytes = flops = 0
+        for qw in qws[0]:
+            nbytes += qw.nbytes() + m * qw.k * 2 + m * qw.n * 2
+            flops += 2 * m * qw.k * qw.n
+        return bound(nbytes, flops)
+
+    xs = inputs(SLOTS)
 
     def plain():
         for row in qws:
             for qw in row:
                 qm.plain(xs[qw.k], qw.packed, qw.scale, qw.zmin,
                          bits=qw.bits, group_size=qw.group_size)
-
-    def library():
-        for row in wd:
-            for w in row:
-                torch.matmul(xs[w.shape[0]], w)
 
     def one(qw):
         return lambda: qm.quant_matmul(xs[qw.k], qw.packed, qw.scale,
@@ -862,21 +880,26 @@ def time_quant_matmul(engine, cfg) -> dict:
                       "ms": graph_time(one(qw)),
                       "kernel_us": kernel_split_us(one(qw))}
                 for lab, qw in zip(labels, qws[0])}
-    n_layers = len(qws)
-    nbytes = flops = 0
-    for qw in qws[0]:
-        nbytes += (qw.nbytes() + SLOTS * qw.k * 2 + SLOTS * qw.n * 2)
-        flops += 2 * SLOTS * qw.k * qw.n
-    b_ms, b_by = bound(nbytes, flops)
-    return {"ms": graph_time(kernel, reps=2, iters=20) / n_layers,
-            "eager_ms": cuda_time(kernel, 20) / n_layers,
+    b_ms, b_by = layer_bound(SLOTS)
+    x16 = inputs(16)
+    b16_ms, b16_by = layer_bound(16)
+    return {"ms": graph_time(kernel(xs), reps=2, iters=20) / n_layers,
+            "eager_ms": cuda_time(kernel(xs), 20) / n_layers,
             "plain_ms": cuda_time(plain, 3, warmup=1) / n_layers,
-            "library_ms": graph_time(library, reps=2, iters=20) / n_layers,
+            "library_ms": graph_time(library(xs), reps=2, iters=20)
+            / n_layers,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"one layer's 7 projections at M={SLOTS}, bf16 x, "
                      f"lq4w (K,N) as in per_projection; timed over all "
                      f"{n_layers} layers' own weights",
-            "per_projection_hot_l2": per_proj}
+            "per_projection_hot_l2": per_proj,
+            "at_m16": {
+                "ms": graph_time(kernel(x16), reps=2, iters=20) / n_layers,
+                "library_ms": graph_time(library(x16), reps=2, iters=20)
+                / n_layers,
+                "bound_ms": b16_ms, "bound_by": b16_by,
+                "plans": {lab: list(qm.plan(16, qw.k, qw.n, qw.bits))
+                          for lab, qw in zip(labels, qws[0])}}}
 
 
 def time_paged_attention(dev) -> dict:

@@ -14,11 +14,11 @@
 // has to move.  To stream at that rate the card needs ~2-3 MB of loads in
 // flight, ~16-20 KB per SM, and enough blocks to put them on every SM.
 //
-// Two kernels, chosen by the wrapper (kernels/quant_matmul.py, plan()):
+// Two kernels, chosen by M in the wrapper (kernels/quant_matmul.py):
 //
 // M <= 16, every decode step: split K.  A block owns BM rows (4 or 16, one
 // tile covers M) by a strip of TX * VEC columns and one contiguous range of
-// packed rows (split s of S: rows [s*R/S, (s+1)*R/S)); the wrapper picks S so
+// packed rows (split s of S: rows [s*R/S, (s+1)*R/S)); its plan() picks S so
 // that the grid has up to 2 blocks per SM, at least one, even at N = 512
 // (256-264 blocks for every llama3.2-1b projection at M = 4).
 //   - Wide loads: each thread owns VEC consecutive columns (16 at BM 4, 8 at
@@ -126,16 +126,17 @@ quant_matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ packed,
 // M <= 16: split K, wide loads, x in shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int TX = 16;  // threads across N (kernels/quant_matmul.py: LANES_N)
+constexpr int TX = 16;  // threads across N
 constexpr int TY = 8;   // thread rows across the block's packed rows
 constexpr int THREADS = TX * TY;
 constexpr int WARPS = THREADS / 32;  // each warp holds two thread rows
-constexpr int X_SMEM_BYTES = 32 * 1024;  // the plan keeps x's slice within it
+// the plan (kernels/quant_matmul.py) keeps x's slice within it
+constexpr int X_SMEM_BYTES = 32 * 1024;
 
 template <int BM> struct SplitGeom {
   static constexpr int VEC = BM == 4 ? 16 : 8;  // columns (bytes) per thread
   static constexpr int U = BM == 4 ? 4 : 8;     // rows per load batch
-  static constexpr int BNS = TX * VEC;          // columns per block
+  static constexpr int BNS = TX * VEC;  // columns per block (plan: BLOCK_COLS)
 };
 
 // VEC bytes of one packed row, 4 per word, byte c of the thread's columns in
@@ -402,8 +403,7 @@ splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
 template <int BITS, int BM, typename T>
 int launch_splitk(const void* x, const void* packed, const void* scale,
                   const void* zmin, void* ws, void* out, int M, int K, int N,
-                  int group_size, int splits, bool vec_ok,
-                  cudaStream_t stream) {
+                  int group_size, int splits, cudaStream_t stream) {
   using G = SplitGeom<BM>;
   constexpr int CPB = codes_per_byte<BITS>();
   const int R = K / CPB;
@@ -412,6 +412,11 @@ int launch_splitk(const void* x, const void* packed, const void* scale,
   const size_t red_bytes = (size_t)WARPS * BM * G::BNS * sizeof(float);
   if (M > BM || splits < 1 || splits > R || x_bytes > X_SMEM_BYTES)
     return (int)cudaErrorInvalidValue;
+  // wide loads need N a multiple of VEC and 16-byte aligned operands, so
+  // that every thread's columns of every row start aligned
+  auto aligned = [](const void* p) { return (uintptr_t)p % 16 == 0; };
+  const bool vec_ok = N % G::VEC == 0 && aligned(packed) && aligned(scale) &&
+                      aligned(zmin);
   const dim3 grid((N + G::BNS - 1) / G::BNS, splits);
   quant_matmul_splitk_kernel<BITS, BM, T>
       <<<grid, THREADS, x_bytes > red_bytes ? x_bytes : red_bytes, stream>>>(
@@ -427,65 +432,65 @@ int launch_splitk(const void* x, const void* packed, const void* scale,
 }
 
 template <int BITS, typename T>
-int launch(const void* x, const void* packed, const void* scale,
-           const void* zmin, void* out, int M, int K, int N, int group_size,
-           cudaStream_t stream) {
+int splitk_bm(int bm, const void* x, const void* packed, const void* scale,
+              const void* zmin, void* ws, void* out, int M, int K, int N,
+              int group_size, int splits, cudaStream_t stream) {
+  if (bm == 4)
+    return launch_splitk<BITS, 4, T>(x, packed, scale, zmin, ws, out, M, K, N,
+                                     group_size, splits, stream);
+  if (bm == 16)
+    return launch_splitk<BITS, 16, T>(x, packed, scale, zmin, ws, out, M, K,
+                                      N, group_size, splits, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int dispatch_splitk(int bits, int bm, const void* x, const void* packed,
+                    const void* scale, const void* zmin, void* ws, void* out,
+                    int M, int K, int N, int group_size, int splits,
+                    cudaStream_t stream) {
+#define REPRO_SPLITK(B)                                                     \
+  return splitk_bm<B, T>(bm, x, packed, scale, zmin, ws, out, M, K, N,      \
+                         group_size, splits, stream);
+  switch (bits) {
+    case 1: REPRO_SPLITK(1)
+    case 2: REPRO_SPLITK(2)
+    case 4: REPRO_SPLITK(4)
+    // a byte holds one code below 8 bits too: the 8-bit walk reads it as it is
+    case 3: case 5: case 6: case 7: case 8: REPRO_SPLITK(8)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_SPLITK
+}
+
+template <int BITS, typename T>
+void launch(const void* x, const void* packed, const void* scale,
+            const void* zmin, void* out, int M, int K, int N, int group_size,
+            cudaStream_t stream) {
   const dim3 block(BN, KS);
   const dim3 grid((N + BN - 1) / BN, (M + 15) / 16);
   quant_matmul_kernel<BITS, 16, T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
       static_cast<const float*>(scale), static_cast<const float*>(zmin),
       static_cast<T*>(out), M, K, N, group_size);
-  return (int)cudaGetLastError();
-}
-
-template <int BITS, typename T>
-int dispatch_route(const void* x, const void* packed, const void* scale,
-                   const void* zmin, void* ws, void* out, int M, int K, int N,
-                   int group_size, int bm, int vec, int splits, bool vec_ok,
-                   cudaStream_t stream) {
-  if (splits == 0)
-    return launch<BITS, T>(x, packed, scale, zmin, out, M, K, N, group_size,
-                           stream);
-  // a byte holds one code below 8 bits too (3, 5, 6, 7): the 8-bit walk
-  // reads it as it is
-  constexpr int SB = codes_per_byte<BITS>() == 1 ? 8 : BITS;
-  if (bm == 4 && vec == SplitGeom<4>::VEC)
-    return launch_splitk<SB, 4, T>(x, packed, scale, zmin, ws, out, M, K, N,
-                                   group_size, splits, vec_ok, stream);
-  if (bm == 16 && vec == SplitGeom<16>::VEC)
-    return launch_splitk<SB, 16, T>(x, packed, scale, zmin, ws, out, M, K, N,
-                                    group_size, splits, vec_ok, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
 int dispatch_bits(int bits, const void* x, const void* packed,
-                  const void* scale, const void* zmin, void* ws, void* out,
-                  int M, int K, int N, int group_size, int bm, int vec,
-                  int splits, bool vec_ok, cudaStream_t stream) {
-#define REPRO_ROUTE(B)                                                       \
-  case B:                                                                    \
-    return dispatch_route<B, T>(x, packed, scale, zmin, ws, out, M, K, N,    \
-                                group_size, bm, vec, splits, vec_ok, stream);
+                  const void* scale, const void* zmin, void* out, int M,
+                  int K, int N, int group_size, cudaStream_t stream) {
   switch (bits) {
-    REPRO_ROUTE(1) REPRO_ROUTE(2) REPRO_ROUTE(3) REPRO_ROUTE(4)
-    REPRO_ROUTE(5) REPRO_ROUTE(6) REPRO_ROUTE(7) REPRO_ROUTE(8)
+    case 1: launch<1, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 2: launch<2, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 3: launch<3, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 4: launch<4, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 5: launch<5, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 6: launch<6, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 7: launch<7, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
+    case 8: launch<8, T>(x, packed, scale, zmin, out, M, K, N, group_size, stream); break;
     default: return (int)cudaErrorInvalidValue;
   }
-#undef REPRO_ROUTE
-}
-
-int run(const void* x, const void* packed, const void* scale, const void* zmin,
-        void* ws, void* out, int M, int K, int N, int bits, int group_size,
-        int bm, int vec, int splits, bool vec_ok, int x_bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (x_bf16)
-    return dispatch_bits<__nv_bfloat16>(bits, x, packed, scale, zmin, ws, out,
-                                        M, K, N, group_size, bm, vec, splits,
-                                        vec_ok, s);
-  return dispatch_bits<float>(bits, x, packed, scale, zmin, ws, out, M, K, N,
-                              group_size, bm, vec, splits, vec_ok, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -499,22 +504,28 @@ extern "C" int repro_quant_matmul(const void* x, const void* packed,
                                   const void* scale, const void* zmin,
                                   void* out, int M, int K, int N, int bits,
                                   int group_size, int x_bf16, void* stream) {
-  return repro_torch::run(x, packed, scale, zmin, nullptr, out, M, K, N, bits,
-                          group_size, 16, 1, 0, false, x_bf16, stream);
+  using namespace repro_torch;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return dispatch_bits<__nv_bfloat16>(bits, x, packed, scale, zmin, out, M,
+                                        K, N, group_size, s);
+  return dispatch_bits<float>(bits, x, packed, scale, zmin, out, M, K, N,
+                              group_size, s);
 }
 
-// The split-K kernel and its reduction (M <= bm): ws is f32 (splits, M, N)
-// scratch; (bm, vec) is (4, 16) or (16, 8); vec_ok says that N is a
-// multiple of vec and packed/scale/zmin are 16-byte aligned.
+// The split-K kernel and its reduction (M <= bm, bm 4 or 16): ws is f32
+// (splits, M, N) scratch.
 extern "C" int repro_quant_matmul_splitk(const void* x, const void* packed,
                                          const void* scale, const void* zmin,
                                          void* ws, void* out, int M, int K,
                                          int N, int bits, int group_size,
-                                         int bm, int vec, int splits,
-                                         int vec_ok, int x_bf16,
+                                         int bm, int splits, int x_bf16,
                                          void* stream) {
-  if (splits < 1) return (int)cudaErrorInvalidValue;
-  return repro_torch::run(x, packed, scale, zmin, ws, out, M, K, N, bits,
-                          group_size, bm, vec, splits, vec_ok != 0, x_bf16,
-                          stream);
+  using namespace repro_torch;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (x_bf16)
+    return dispatch_splitk<__nv_bfloat16>(bits, bm, x, packed, scale, zmin, ws,
+                                          out, M, K, N, group_size, splits, s);
+  return dispatch_splitk<float>(bits, bm, x, packed, scale, zmin, ws, out, M,
+                                K, N, group_size, splits, s);
 }

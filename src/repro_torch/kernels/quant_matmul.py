@@ -2,10 +2,10 @@
 their wrapper, its launch count and its plain version.
 
 Port of ``repro/kernels/quant_matmul.py``.  ``quant_matmul`` sends a CPU
-tensor to :func:`plain` and a CUDA tensor to a kernel chosen by M
-(:func:`plan`): up to ``DECODE_M`` rows (every decode step) the split-K
-kernel and its fixed-order reduction, above it (the prefill bucket) the
-one-pass kernel.  A CUDA tensor the kernels do not take raises.
+tensor to :func:`plain` and a CUDA tensor to a kernel chosen by M: up
+to ``DECODE_M`` rows (every decode step) the split-K kernel and its
+fixed-order reduction, launched as :func:`plan` says; above it (the
+prefill bucket) the one-pass kernel.  A CUDA tensor the kernels do not take raises.
 ``quant_matmul.launches`` counts wrapper calls that launched (one per
 call, whichever route).
 """
@@ -24,8 +24,10 @@ _DTYPES = (torch.float32, torch.bfloat16)
 DECODE_M = 16                    # rows up to which the split-K kernel runs
 SMS = 132                        # streaming multiprocessors of an H100 SXM
 TARGET_BLOCKS = 2 * SMS          # split-K grid: two blocks per SM
-X_SMEM_BYTES = 32 * 1024         # a block's f32 slice of x in shared memory
-LANES_N = 16                     # threads across N per block (csrc: TX)
+# as csrc/quant_matmul.cu: a block's f32 slice of x in shared memory must
+# fit X_SMEM_BYTES, and a block of BM rows owns BLOCK_COLS[BM] columns
+X_SMEM_BYTES = 32 * 1024
+BLOCK_COLS = {4: 256, 16: 128}
 F32_U = 2.0 ** -24               # unit roundoff of float32
 BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
 
@@ -65,32 +67,29 @@ def _entry():
 @functools.cache
 def _splitk_entry():
     fn = build.library("quant_matmul").repro_quant_matmul_splitk
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 \
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def plan(m: int, k: int, n: int, bits: int) -> tuple[int, int, int]:
-    """The launch of an (M, K) @ (K, N) product: ``(bm, vec, splits)``.
-
-    M <= DECODE_M: the split-K kernel, a block of BM = ``bm`` rows by
-    ``LANES_N * vec`` columns (each thread loads ``vec`` bytes of a packed
-    row at once) over one of ``splits`` contiguous ranges of packed rows
-    (:func:`split_rows`).  ``splits`` gives the grid as many blocks as
-    fit TARGET_BLOCKS (at least SMS while N has fewer strips than that)
-    where K has enough packed rows, and keeps a block's f32 slice of x
-    within X_SMEM_BYTES.  M > DECODE_M: ``(16, 1, 1)``, the one-pass
-    kernel (16-row tiles, one byte per lane, no split)."""
+def plan(m: int, k: int, n: int, bits: int) -> tuple[int, int]:
+    """The split-K launch of an (M, K) @ (K, N) product with M <=
+    DECODE_M: ``(bm, splits)``, blocks of BM = ``bm`` rows by
+    ``BLOCK_COLS[bm]`` columns over one of ``splits`` contiguous ranges of
+    packed rows (:func:`split_rows`).  ``splits`` gives the grid as many
+    blocks as fit TARGET_BLOCKS (at least SMS while N has fewer strips than
+    that) where K has enough packed rows, and keeps a block's f32 slice of
+    x within X_SMEM_BYTES.  A larger M runs the one-pass kernel, which
+    takes no plan."""
     if m > DECODE_M:
-        return 16, 1, 1
+        raise ValueError(f"M={m} > {DECODE_M} runs the one-pass kernel")
     bm = 4 if m <= 4 else 16
-    vec = 16 if bm == 4 else 8
     rows = k // packing.codes_per_byte(bits)
-    strips = -(-n // (LANES_N * vec))
+    strips = -(-n // BLOCK_COLS[bm])
     splits = max(TARGET_BLOCKS // strips, 1,
                  -(-k * 4 * bm // X_SMEM_BYTES))
-    return bm, vec, min(splits, rows)
+    return bm, min(splits, rows)
 
 
 def split_rows(rows: int, splits: int) -> list[tuple[int, int]]:
@@ -135,22 +134,20 @@ def quant_matmul(x, packed, scale, zmin, *, bits: int, group_size: int):
         raise ValueError("quant_matmul operands lie on different devices")
     x, packed, scale, zmin = (t.contiguous() for t in tensors)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    bm, vec, splits = plan(m, k, n, bits)
     bf16 = int(x.dtype == torch.bfloat16)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if m <= DECODE_M:
+            bm, splits = plan(m, k, n, bits)
             # f32 partial tiles of the splits, summed in a fixed order by
             # the second kernel: no atomics, so every call gives the same
             # bytes
             ws = torch.empty((splits, m, n), dtype=torch.float32,
                              device=x.device)
-            vec_ok = n % vec == 0 and all(
-                t.data_ptr() % 16 == 0 for t in (packed, scale, zmin))
             status = _splitk_entry()(
                 x.data_ptr(), packed.data_ptr(), scale.data_ptr(),
                 zmin.data_ptr(), ws.data_ptr(), out.data_ptr(), m, k, n,
-                bits, group_size, bm, vec, splits, int(vec_ok), bf16, stream)
+                bits, group_size, bm, splits, bf16, stream)
         else:
             status = _entry()(
                 x.data_ptr(), packed.data_ptr(), scale.data_ptr(),

@@ -207,9 +207,9 @@ def test_quant_matmul_plan_fills_the_card_at_decode(m, bits):
     """Every llama3.2-1b projection launches at least one block per SM at
     decode, and a block's slice of x fits its shared-memory budget."""
     for k, n in LLAMA_1B:
-        bm, vec, splits = tqm.plan(m, k, n, bits)
-        assert bm >= m and (bm, vec) in ((4, 16), (16, 8))
-        strips = -(-n // (tqm.LANES_N * vec))       # the grid's columns
+        bm, splits = tqm.plan(m, k, n, bits)
+        assert bm >= m and bm in tqm.BLOCK_COLS
+        strips = -(-n // tqm.BLOCK_COLS[bm])        # the grid's columns
         assert strips * splits >= tqm.SMS
         rows = k // (8 // bits if bits in (1, 2, 4) else 1)
         widest = max(hi - lo for lo, hi in tqm.split_rows(rows, splits))
@@ -227,7 +227,11 @@ def test_quant_matmul_splits_cover_k_once(rows, splits):
 
 
 def test_quant_matmul_plan_keeps_prefill_on_the_old_kernel():
+    """Up to 16 rows split K; the prefill bucket (M > 16) takes no plan:
+    the wrapper launches the one-pass kernel."""
+    assert tqm.DECODE_M == 16
     for k, n in LLAMA_1B:
         for m in (17, 176):
-            assert tqm.plan(m, k, n, 4) == (16, 1, 1)
-        assert tqm.plan(16, k, n, 4)[2] > 1
+            with pytest.raises(ValueError, match="one-pass"):
+                tqm.plan(m, k, n, 4)
+        assert tqm.plan(16, k, n, 4)[1] > 1
