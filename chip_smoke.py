@@ -5,12 +5,13 @@
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), torch and CUDA
-  build    nvcc builds of the four kernels from src/repro_torch/kernels/csrc
+  build    nvcc builds of the four kernels from src/repro_torch/kernels/csrc,
+           with each kernel instantiation's registers, spills and stack
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the main paths' shapes: quant_matmul, paged_attention and
            lut_matmul within computed error bounds, act_quant byte for byte;
-           quant_matmul also gives the same bytes twice and from a CUDA
-           graph replay
+           quant_matmul and lut_matmul also give the same bytes twice and
+           from a CUDA graph replay
   serve    llama3.2-1b at its published widths (random weights from a
            seed) through the port's Server, 4-bit paged KV, fused
            attention, bf16, under three schemes: lq4w (weight-only,
@@ -25,8 +26,9 @@ Phases, each printed as one JSON line:
            call (see phase_parity_act)
   timing   CUDA-event times of each kernel (device time from CUDA-graph
            replays where the kernel is shorter than its wrapper's host
-           work: quant_matmul, act_quant), its plain version and a library
-           call computing the same function, beside the card's bound
+           work: quant_matmul, act_quant, lut_matmul), its plain version
+           and a library call computing the same function, beside the
+           card's bound
 
 then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -133,6 +135,30 @@ def phase_device() -> str:
     return smi
 
 
+def ptxas_report(log: str) -> dict:
+    """``{kernel<template args>: [registers, spill-store bytes, stack
+    bytes]}`` of each kernel instantiation in a library's ``ptxas -v``
+    log."""
+    out = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        fn = re.search(r"'(\w+)'", chunk).group(1)
+        name = re.search(r"\d+([a-z_]+_kernel)", fn)
+        args = re.findall(r"Li(\d+)E", fn)
+        if "bfloat16" in fn:
+            args.append("bf16")
+        elif re.search(r"kernelI(?:Li\d+E)*fE", fn):
+            args.append("f32")
+        label = f"{name.group(1) if name else fn}<{','.join(args)}>"
+
+        def num(pattern):
+            hit = re.search(pattern, chunk)
+            return int(hit.group(1)) if hit else None
+        out[label] = [num(r"Used (\d+) registers"),
+                      num(r"(\d+) bytes spill stores"),
+                      num(r"(\d+) bytes stack frame")]
+    return out
+
+
 def phase_build() -> None:
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -148,12 +174,33 @@ def phase_build() -> None:
               for n, log in logs.items()},
           "max_registers": {
               n: max(map(int, re.findall(r"Used (\d+) registers", log)),
-                     default=None) for n, log in logs.items()}})
+                     default=None) for n, log in logs.items()},
+          "per_kernel": {n: ptxas_report(log) for n, log in logs.items()},
+          "per_kernel_key": "[registers, spill-store bytes, stack bytes]"})
 
 
 # ---------------------------------------------------------------------------
 # phase: kernels against their plain versions
 # ---------------------------------------------------------------------------
+
+def same_bytes_thrice(call, where: str):
+    """``call()``'s result, after checking that a second call and a CUDA
+    graph replay of it give the same bytes."""
+    got = call()
+    again = call()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = call()
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{where}: two calls differ")
+    if not torch.equal(got, replayed):
+        raise AssertionError(f"{where}: graph replay differs from the "
+                             f"eager call")
+    return got
+
 
 def check_quant_matmul(dev) -> dict:
     """The kernel within ``quant_matmul.error_bound`` of the plain version
@@ -182,23 +229,11 @@ def check_quant_matmul(dev) -> dict:
                     def call():
                         return qm.quant_matmul(x, packed, scale, zmin,
                                                bits=bits, group_size=gs)
-                    got = call()
-                    want = qm.plain(x, packed, scale, zmin, bits=bits,
-                                    group_size=gs)
-                    again = call()
-                    graph = torch.cuda.CUDAGraph()
-                    with torch.cuda.graph(graph):
-                        replayed = call()
-                    replayed.zero_()
-                    graph.replay()
-                    torch.cuda.synchronize()
                     where = (f"quant_matmul bits={bits} {dtype} M={m} K={k}"
                              f" N={n}")
-                    if not torch.equal(got, again):
-                        raise AssertionError(f"{where}: two calls differ")
-                    if not torch.equal(got, replayed):
-                        raise AssertionError(f"{where}: graph replay differs "
-                                             f"from the eager call")
+                    got = same_bytes_thrice(call, where)
+                    want = qm.plain(x, packed, scale, zmin, bits=bits,
+                                    group_size=gs)
                     wd = ref.dequantize_weight(packed, scale, zmin, bits, gs)
                     tol = qm.error_bound(x, wd, want)
                     err = (got.float() - want.float()).abs()
@@ -289,6 +324,7 @@ PROJECTION_NAMES = (("mixer", "wq"), ("mixer", "wk"), ("mixer", "wv"),
                     ("ffn", "wo"))
 PROJECTIONS = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
                (2048, 8192), (2048, 8192), (8192, 2048))
+LABELS = ("q", "k", "v", "o", "gate", "up", "down")
 
 
 def check_act_quant(dev) -> dict:
@@ -319,36 +355,42 @@ def check_act_quant(dev) -> dict:
 
 
 def check_lut_matmul(dev) -> dict:
-    """The kernel within ``lut_matmul.error_bound`` of the plain version,
-    over the 7 projection shapes at M = slots (decode) and the prefill
-    bucket, codes from the plain act_quant of a random x."""
+    """The kernel within ``lut_matmul.error_bound`` of the plain version
+    at bits 1-4, the decode rows (M 1, 4, 7, 16: the split-K kernel, 7 a
+    ragged tile) and the prefill bucket (the one-pass kernel), over the 7
+    projection shapes and a ragged N, codes from the plain act_quant of a
+    random x; every case is also called twice and replayed from a CUDA
+    graph, and must give the same bytes each time."""
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import lut_matmul as lm
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     cases, worst = 0, {"abs": 0.0, "rel": 0.0, "ratio": 0.0}
-    for bits in (1, 2, 4):
-        for m in (SLOTS, MAX_CONTEXT):
-            for k, n in PROJECTIONS:
+    for bits in (1, 2, 3, 4):
+        for m in (1, 4, 7, 16, MAX_CONTEXT):
+            for k, n in PROJECTIONS + ((2048, 2024),):
                 x = torch.randn((m, k), generator=gen, device=dev)
                 w = torch.randn((k, n), generator=gen, device=dev) * k ** -0.5
                 a = aq.plain(x, bits=bits, group_size=128)
-                got = lm.lut_matmul(*a, w, bits=bits, group_size=128)
+                where = f"lut_matmul bits={bits} M={m} K={k} N={n}"
+                got = same_bytes_thrice(
+                    lambda: lm.lut_matmul(*a, w, bits=bits, group_size=128),
+                    where)
                 want = lm.plain(*a, w, bits=bits, group_size=128)
-                torch.cuda.synchronize()
                 tol = lm.error_bound(*a, w, want, bits=bits, group_size=128)
                 err = (got - want).abs()
                 ratio = float((err / tol).max())
                 if not bool((err <= tol).all()):
                     raise AssertionError(
-                        f"lut_matmul bits={bits} M={m} K={k} N={n}: max err "
-                        f"{float(err.max())}, {ratio:.2f}x the bound")
+                        f"{where}: max err {float(err.max())}, {ratio:.2f}x "
+                        f"the bound")
                 worst["abs"] = max(worst["abs"], float(err.max()))
                 worst["rel"] = max(worst["rel"], float(
                     (err / want.abs().clamp_min(1e-6)).max()))
                 worst["ratio"] = max(worst["ratio"], ratio)
                 cases += 1
     return {"cases": cases, "max_abs_err": worst["abs"],
-            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"]}
+            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"],
+            "deterministic": True, "graph_replay_equal": True}
 
 
 def phase_kernels(dev) -> dict:
@@ -874,12 +916,11 @@ def time_quant_matmul(engine, cfg) -> dict:
                                        qw.zmin, bits=qw.bits,
                                        group_size=qw.group_size)
 
-    labels = ("q", "k", "v", "o", "gate", "up", "down")
     per_proj = {lab: {"K": qw.k, "N": qw.n,
                       "plan": list(qm.plan(SLOTS, qw.k, qw.n, qw.bits)),
                       "ms": graph_time(one(qw)),
                       "kernel_us": kernel_split_us(one(qw))}
-                for lab, qw in zip(labels, qws[0])}
+                for lab, qw in zip(LABELS, qws[0])}
     b_ms, b_by = layer_bound(SLOTS)
     x16 = inputs(16)
     b16_ms, b16_by = layer_bound(16)
@@ -899,7 +940,7 @@ def time_quant_matmul(engine, cfg) -> dict:
                 / n_layers,
                 "bound_ms": b16_ms, "bound_by": b16_by,
                 "plans": {lab: list(qm.plan(16, qw.k, qw.n, qw.bits))
-                          for lab, qw in zip(labels, qws[0])}}}
+                          for lab, qw in zip(LABELS, qws[0])}}}
 
 
 def time_paged_attention(dev) -> dict:
@@ -985,54 +1026,107 @@ def time_act_quant(dev) -> dict:
 def time_lut_matmul(engine) -> dict:
     """One decode step's lut_matmul calls (7 per layer, every layer's own
     f32 weights, so they stream from memory as on the path) at M =
-    max_slots with 2-bit codes; per-layer times are that over the layer
-    count.  The library call is torch.matmul of the dequantized
-    activations and the f32 weights, TF32 off."""
+    max_slots with 2-bit codes (lq2_lut); per-layer times are that over the
+    layer count.  ``ms``, ``library_ms`` and ``per_projection_hot_l2`` are
+    device time from CUDA-graph replays; ``eager_ms`` is the same calls in
+    an eager loop, which the wrapper's host work paces once the kernel is
+    short; ``kernel_us`` splits a projection's call between its kernels.
+    ``at_m16`` times the same at M = 16 and ``four_bit`` with 4-bit codes
+    (lq4_lut), each against the library call and its own bound.  The
+    library call is torch.matmul of the dequantized activations and the
+    f32 weights, TF32 off."""
+    from repro_torch.core import packing
     from repro_torch.kernels import act_quant as aq
     from repro_torch.kernels import lut_matmul as lm
     from repro_torch.kernels import ops, ref
     dev = engine.device
     ws = [[ops.dequantize_weight(lay[a][b]["w"]) for a, b in PROJECTION_NAMES]
           for lay in engine.params["layers"]]
+    n_layers = len(ws)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
-    acts = {k: aq.plain(torch.randn((SLOTS, k), generator=gen, device=dev),
-                        bits=2, group_size=128) for k, _ in PROJECTIONS}
-    deq = {k: ref.act_dequant(*a, bits=2, group_size=128)
-           for k, a in acts.items()}
 
-    def kernel():
-        for row in ws:
-            for w in row:
-                lm.lut_matmul(*acts[w.shape[0]], w, bits=2, group_size=128)
+    def inputs(m, bits):
+        return {k: aq.plain(torch.randn((m, k), generator=gen, device=dev),
+                            bits=bits, group_size=128)
+                for k in sorted({k for k, _ in PROJECTIONS})}
+
+    def kernel(acts, bits):
+        def run():
+            for row in ws:
+                for w in row:
+                    lm.lut_matmul(*acts[w.shape[0]], w, bits=bits,
+                                  group_size=128)
+        return run
+
+    def library(acts, bits):
+        deq = {k: ref.act_dequant(*a, bits=bits, group_size=128)
+               for k, a in acts.items()}
+
+        def run():
+            for row in ws:
+                for w in row:
+                    torch.matmul(deq[w.shape[0]], w)
+        return run
+
+    def layer_bound(m, bits):
+        nbytes = flops = 0
+        for k, n in PROJECTIONS:
+            g = k // 128
+            nbytes += (k * n * 4 + m * (k // packing.codes_per_byte(bits)
+                                        + g * 8) + m * n * 4)
+            # a table add per (m, k, n), the combine and affine per
+            # (m, g, n), sum_j w_j per (k, n)
+            flops += m * k * n + m * g * n * (2 * ((1 << bits) - 1) + 4) \
+                + k * n
+        return bound(nbytes, flops, F32_FLOPS)
+
+    def plans(m, bits):
+        return {lab: list(lm.plan(m, k, n, bits))
+                for lab, (k, n) in zip(LABELS, PROJECTIONS)}
+
+    def timed(m, bits):
+        acts = inputs(m, bits)
+        b_ms, b_by = layer_bound(m, bits)
+        return {"ms": graph_time(kernel(acts, bits), reps=2, iters=10)
+                / n_layers,
+                "library_ms": graph_time(library(acts, bits), reps=2,
+                                         iters=10) / n_layers,
+                "bound_ms": b_ms, "bound_by": b_by,
+                "plans": plans(m, bits)}
+
+    acts = inputs(SLOTS, 2)
 
     def plain():
         for row in ws:
             for w in row:
                 lm.plain(*acts[w.shape[0]], w, bits=2, group_size=128)
 
-    def library():
-        for row in ws:
-            for w in row:
-                torch.matmul(deq[w.shape[0]], w)
+    def one(w):
+        return lambda: lm.lut_matmul(*acts[w.shape[0]], w, bits=2,
+                                     group_size=128)
 
-    nbytes = flops = 0
-    for k, n in PROJECTIONS:
-        g = k // 128
-        nbytes += k * n * 4 + SLOTS * (k // 4 + g * 8) + SLOTS * n * 4
-        # a table add per (m, k, n), the combine and affine per (m, g, n),
-        # sum_j w_j per (k, n)
-        flops += SLOTS * k * n + SLOTS * g * n * (2 * 3 + 4) + k * n
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
-    n_layers = len(ws)
-    return {"ms": cuda_time(kernel, 10) / n_layers,
+    per_proj = {lab: {"K": w.shape[0], "N": w.shape[1],
+                      "plan": list(lm.plan(SLOTS, *w.shape, 2)),
+                      "ms": graph_time(one(w)),
+                      "kernel_us": kernel_split_us(one(w))}
+                for lab, w in zip(LABELS, ws[0])}
+    b_ms, b_by = layer_bound(SLOTS, 2)
+    return {"ms": graph_time(kernel(acts, 2), reps=2, iters=10) / n_layers,
+            "eager_ms": cuda_time(kernel(acts, 2), 10) / n_layers,
             "plain_ms": cuda_time(plain, 2, warmup=1) / n_layers,
-            "library_ms": cuda_time(library, 10) / n_layers,
+            "library_ms": graph_time(library(acts, 2), reps=2, iters=10)
+            / n_layers,
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"one layer's 7 projections at M={SLOTS}, 2-bit codes, "
-                     f"f32 W (K,N) {list(PROJECTIONS)}; timed over all "
+                     f"f32 W (K,N) as in per_projection; timed over all "
                      f"{n_layers} layers' own weights; bound against the "
                      f"f32 non-tensor peak",
-            "library": "torch.matmul(act_dequant(a), W), f32, TF32 off"}
+            "library": "torch.matmul(act_dequant(a), W), f32, TF32 off, by "
+                       "graph replay",
+            "plans": plans(SLOTS, 2),
+            "per_projection_hot_l2": per_proj,
+            "at_m16": timed(16, 2),
+            "four_bit": timed(SLOTS, 4)}
 
 
 def phase_timing(serves, dev) -> dict:
@@ -1092,7 +1186,8 @@ def main() -> int:
          "launches_by_scheme": {sc: ln[name] for sc, ln in by_scheme.items()},
          "max_abs_err": checks[name]["max_abs_err"],
          "max_rel_err": checks[name]["max_rel_err"],
-         "ms": timing[name]["ms"], "plain_ms": timing[name]["plain_ms"],
+         "ms": timing[name]["ms"], "eager_ms": timing[name].get("eager_ms"),
+         "plain_ms": timing[name]["plain_ms"],
          "bound_ms": timing[name]["bound_ms"],
          "bound_by": timing[name]["bound_by"],
          "library_ms": timing[name]["library_ms"],

@@ -1,4 +1,6 @@
-// Shared helpers of the port's CUDA kernels: f32 <-> storage conversions.
+// Shared helpers of the port's CUDA kernels: f32 <-> storage conversions,
+// the LQ wire format's codes per byte, and the fixed-order reduction of
+// split-K partial tiles (quant_matmul.cu and lut_matmul.cu).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -23,4 +25,53 @@ template <int BITS> __host__ __device__ constexpr int codes_per_byte() {
   return (BITS == 1 || BITS == 2 || BITS == 4) ? 8 / BITS : 1;
 }
 
+namespace {
+
+// out[m, n] = sum over splits of ws[s, m, n] in a fixed order: a block owns
+// 32 outputs; its warp q sums splits q, q + 8, ... and the 8 warp sums are
+// added in warp order.
+constexpr int RED_GROUPS = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(32 * RED_GROUPS)
+splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                     int MN, int splits) {
+  constexpr int RU = 4;  // loads in flight per thread
+  __shared__ float part[RED_GROUPS][32];
+  const int lane = threadIdx.x % 32, q = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float sum = 0.f;
+  if (i < MN) {
+    for (int s0 = q; s0 < splits; s0 += RED_GROUPS * RU) {
+      float v[RU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int s = s0 + u * RED_GROUPS;
+        v[u] = s < splits ? ws[(size_t)s * MN + i] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) sum += v[u];
+    }
+  }
+  part[q][lane] = sum;
+  __syncthreads();
+  if (q == 0 && i < MN) {
+    float total = part[0][lane];
+#pragma unroll
+    for (int w = 1; w < RED_GROUPS; ++w) total += part[w][lane];
+    out[i] = from_f32<T>(total);
+  }
+}
+
+// Launch the reduction of ws (splits, MN) f32 into out (MN); returns
+// cudaGetLastError().  No atomics: every call gives the same bytes.
+template <typename T>
+int splitk_reduce(const float* ws, T* out, int mn, int splits,
+                  cudaStream_t stream) {
+  splitk_reduce_kernel<T><<<(mn + 31) / 32, 32 * RED_GROUPS, 0, stream>>>(
+      ws, out, mn, splits);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
 }  // namespace repro_torch

@@ -42,7 +42,8 @@
 //   - The TY thread rows of a block split its range into contiguous chunks
 //     and meet by one shuffle and a 4-warp sum in shared memory; each split
 //     writes its f32 partial tile to a workspace (S, M, N), and a second
-//     kernel sums the splits in a fixed order.  No atomics: every call gives
+//     kernel (common.cuh, shared with lut_matmul.cu) sums the splits in a
+//     fixed order.  No atomics: every call gives
 //     the same bytes, and a CUDA graph captures both launches (no host sync,
 //     no allocation inside).
 //
@@ -364,42 +365,6 @@ quant_matmul_splitk_kernel(const T* __restrict__ x,
   }
 }
 
-// out[m, n] = sum over splits of ws[s, m, n] in a fixed order: a block owns
-// 32 outputs; its warp q sums splits q, q + 8, ... and the 8 warp sums are
-// added in warp order.
-constexpr int RED_GROUPS = 8;
-
-template <typename T>
-__global__ void __launch_bounds__(32 * RED_GROUPS)
-splitk_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out,
-                     int MN, int splits) {
-  constexpr int RU = 4;  // loads in flight per thread
-  __shared__ float part[RED_GROUPS][32];
-  const int lane = threadIdx.x % 32, q = threadIdx.x / 32;
-  const int i = blockIdx.x * 32 + lane;
-  float sum = 0.f;
-  if (i < MN) {
-    for (int s0 = q; s0 < splits; s0 += RED_GROUPS * RU) {
-      float v[RU];
-#pragma unroll
-      for (int u = 0; u < RU; ++u) {
-        const int s = s0 + u * RED_GROUPS;
-        v[u] = s < splits ? ws[(size_t)s * MN + i] : 0.f;
-      }
-#pragma unroll
-      for (int u = 0; u < RU; ++u) sum += v[u];
-    }
-  }
-  part[q][lane] = sum;
-  __syncthreads();
-  if (q == 0 && i < MN) {
-    float total = part[0][lane];
-#pragma unroll
-    for (int w = 1; w < RED_GROUPS; ++w) total += part[w][lane];
-    out[i] = from_f32<T>(total);
-  }
-}
-
 template <int BITS, int BM, typename T>
 int launch_splitk(const void* x, const void* packed, const void* scale,
                   const void* zmin, void* ws, void* out, int M, int K, int N,
@@ -425,10 +390,8 @@ int launch_splitk(const void* x, const void* packed, const void* scale,
           static_cast<float*>(ws), M, K, N, group_size, vec_ok);
   const int err = (int)cudaGetLastError();
   if (err) return err;
-  const int mn = M * N;
-  splitk_reduce_kernel<T><<<(mn + 31) / 32, 32 * RED_GROUPS, 0, stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), mn, splits);
-  return (int)cudaGetLastError();
+  return splitk_reduce<T>(static_cast<const float*>(ws), static_cast<T*>(out),
+                          M * N, splits, stream);
 }
 
 template <int BITS, typename T>

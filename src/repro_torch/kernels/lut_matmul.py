@@ -1,5 +1,5 @@
-"""Look-up-table matmul (paper section V): the CUDA kernel
-``csrc/lut_matmul.cu``, its wrapper, its launch count and its plain
+"""Look-up-table matmul (paper section V): the CUDA kernels
+``csrc/lut_matmul.cu``, their wrapper, its launch count and its plain
 version.
 
 Port of ``repro/kernels/lut_matmul.py``.  With n-bit activation codes
@@ -9,8 +9,12 @@ Port of ``repro/kernels/lut_matmul.py``.  With n-bit activation codes
     T[v] = sum_{j : code_j == v} w_j,
 
 which equals ``dequant(a) @ w``.  ``lut_matmul`` sends a CPU tensor to
-:func:`plain` and a CUDA tensor to the kernel; a CUDA tensor the kernel
-does not take raises.  ``lut_matmul.launches`` counts kernel launches.
+:func:`plain` and a CUDA tensor to a kernel chosen by M: up to
+``DECODE_M`` rows (every decode step) the split-K kernel and its
+fixed-order reduction, launched as :func:`plan` says; above it (the
+prefill bucket) the one-pass kernel.  A CUDA tensor the kernels do not
+take raises.  ``lut_matmul.launches`` counts wrapper calls that launched
+(one per call, whichever route).
 """
 from __future__ import annotations
 
@@ -21,9 +25,15 @@ import torch
 
 from ..core import packing
 from . import build
+from .quant_matmul import DECODE_M, TARGET_BLOCKS, split_rows
 
 F32_U = 2.0 ** -24               # unit roundoff of float32
 MAX_BITS = 4
+# as csrc/lut_matmul.cu: a split-K block owns BLOCK_COLS columns (64 threads
+# of 4) and at most BM_MAX[bits] rows, so that its 4 x BM x (2^bits - 1)
+# table floats stay in registers
+BLOCK_COLS = 256
+BM_MAX = {1: 8, 2: 4, 3: 2, 4: 1}
 
 
 def check_args(k: int, bits: int, group_size: int) -> None:
@@ -86,10 +96,73 @@ def error_bound(a_packed, a_scale, a_zmin, w, y_plain, *, bits: int,
             + 2 * F32_U * y_plain.abs())
 
 
+def pieces(k: int, bits: int, group_size: int, splits: int) -> list[int]:
+    """The lengths, in codes, of the parts whose tables the split-K kernel
+    sums: each split's code bytes (:func:`split_rows`) cut at the local
+    regions' edges, in K order."""
+    cpb = packing.codes_per_byte(bits)
+    rb = group_size // cpb                     # code bytes per region
+    out = []
+    for lo, hi in split_rows(k // cpb, splits):
+        while lo < hi:
+            end = min(hi, (lo // rb + 1) * rb)
+            out.append((end - lo) * cpb)
+            lo = end
+    return out
+
+
+def summed_terms(k: int, bits: int, group_size: int, splits: int) -> int:
+    """The number of summed terms that :func:`error_bound` has to cover
+    for the split-K kernel at ``splits``: a part's table sums (its length),
+    the 2^n weighted tables, every part's term (summed in a fixed order
+    across the splits) and the affine's 4.  At ``splits`` whole regions or
+    fewer this is error_bound's R + 2^n + G + 4; a region cut into P parts
+    gives R/P + 2^n + G*P + 4, which is no more while P <= R/G."""
+    p = pieces(k, bits, group_size, splits)
+    return max(p) + (1 << bits) + len(p) + 4
+
+
+@functools.cache
+def plan(m: int, k: int, n: int, bits: int,
+         group_size: int = 128) -> tuple[int, int]:
+    """The split-K launch of an (M, K) @ (K, N) product with M <=
+    DECODE_M: ``(bm, splits)``, blocks of BM = ``bm`` rows (the least
+    power of two that covers M, at most ``BM_MAX[bits]``) by BLOCK_COLS
+    columns over one of ``splits`` ranges of code bytes
+    (:func:`split_rows`).  ``splits`` is the least that gives the grid
+    TARGET_BLOCKS blocks, among the splits that keep to error_bound's
+    count of summed terms (:func:`summed_terms`): whole regions each
+    (divisors of G), or each region cut into P equal parts (G*P splits,
+    P <= R/G); where none reaches TARGET_BLOCKS, the most of them.  A
+    larger M runs the one-pass kernel, which takes no plan."""
+    if m > DECODE_M:
+        raise ValueError(f"M={m} > {DECODE_M} runs the one-pass kernel")
+    check_args(k, bits, group_size)
+    bm = min(BM_MAX[bits], 1 << (m - 1).bit_length())
+    blocks = -(-m // bm) * -(-n // BLOCK_COLS)
+    g = k // group_size
+    rb = group_size // packing.codes_per_byte(bits)
+    budget = group_size + (1 << bits) + g + 4
+    cands = sorted({d for d in range(1, g + 1) if g % d == 0}
+                   | {g * p for p in range(2, rb + 1) if rb % p == 0})
+    ok = [c for c in cands if summed_terms(k, bits, group_size, c) <= budget]
+    splits = next((c for c in ok if blocks * c >= TARGET_BLOCKS), ok[-1])
+    return bm, splits
+
+
 @functools.cache
 def _entry():
     fn = build.library("lut_matmul").repro_lut_matmul
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _splitk_entry():
+    fn = build.library("lut_matmul").repro_lut_matmul_splitk
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -123,11 +196,23 @@ def lut_matmul(a_packed, a_scale, a_zmin, w, *, bits: int, group_size: int):
         raise ValueError("lut_matmul operands lie on different devices")
     a_packed, a_scale, a_zmin, w = (t.contiguous() for t in tensors)
     out = torch.empty((m, n), dtype=torch.float32, device=w.device)
+    ptrs = (a_packed.data_ptr(), a_scale.data_ptr(), a_zmin.data_ptr(),
+            w.data_ptr())
     with torch.cuda.device(w.device):
-        status = _entry()(
-            a_packed.data_ptr(), a_scale.data_ptr(), a_zmin.data_ptr(),
-            w.data_ptr(), out.data_ptr(), m, k, n, bits, group_size,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if m <= DECODE_M:
+            bm, splits = plan(m, k, n, bits, group_size)
+            # f32 partial tiles of the splits, summed in a fixed order by
+            # the second kernel: no atomics, so every call gives the same
+            # bytes
+            ws = torch.empty((splits, m, n), dtype=torch.float32,
+                             device=w.device)
+            status = _splitk_entry()(*ptrs, ws.data_ptr(), out.data_ptr(),
+                                     m, k, n, bits, group_size, bm, splits,
+                                     stream)
+        else:
+            status = _entry()(*ptrs, out.data_ptr(), m, k, n, bits,
+                              group_size, stream)
     build.check(status, "lut_matmul")
     lut_matmul.launches += 1
     return out

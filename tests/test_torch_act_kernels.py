@@ -29,6 +29,7 @@ from repro_torch.core import packing
 from repro_torch.kernels import act_quant as taq
 from repro_torch.kernels import lut_matmul as tlm
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import quant_matmul as tqm
 
 RNG = np.random.default_rng(2)
 
@@ -149,3 +150,110 @@ def test_quant_dense_branches_match_jax(scheme, a_bits, lut):
     assert got.shape == (2, 3, 48) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+# llama3.2-1b's projections (K, N): q k v o gate up down; then the shapes
+# the card tests use (ragged and narrow N, K of 2 and 3 regions)
+LLAMA_1B = ((2048, 2048), (2048, 512), (2048, 512), (2048, 2048),
+            (2048, 8192), (2048, 8192), (8192, 2048))
+TEST_SHAPES = ((256, 70), (512, 96), (256, 33), (384, 64), (2048, 2024))
+
+
+def _blocks(m, n, plan):
+    bm, splits = plan
+    return -(-m // bm) * -(-n // tlm.BLOCK_COLS) * splits
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("m", [1, 4, 7, 16])
+def test_lut_matmul_plan_fills_the_card_at_decode(m, bits):
+    """Every llama3.2-1b projection launches at least one block per SM at
+    decode, with a power-of-two row tile whose tables fit registers."""
+    for k, n in LLAMA_1B:
+        bm, splits = tlm.plan(m, k, n, bits)
+        assert bm <= tlm.BM_MAX[bits] and bm & (bm - 1) == 0
+        assert bm >= min(m, tlm.BM_MAX[bits])
+        assert _blocks(m, n, (bm, splits)) >= tqm.SMS
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,splits", [(2048, 128), (2048, 64), (8192, 16),
+                                      (384, 7), (256, 5), (1024, 13)])
+def test_lut_matmul_splits_cover_k_once_in_whole_code_bytes(k, splits,
+                                                            bits):
+    """The splits cover K's code bytes once, in order; each part is whole
+    code bytes inside one region, and the parts add up to K."""
+    cpb = packing.codes_per_byte(bits)
+    ranges = tlm.split_rows(k // cpb, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k // cpb
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    parts = tlm.pieces(k, bits, 128, splits)
+    assert sum(parts) == k and all(p % cpb == 0 and p > 0 for p in parts)
+    edges = np.cumsum([0] + parts)
+    for lo, hi in zip(edges, edges[1:]):
+        assert lo // 128 == (hi - 1) // 128          # inside one region
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("k,n", sorted(set(LLAMA_1B + TEST_SHAPES)))
+def test_lut_matmul_plan_keeps_to_the_error_budget(k, n, bits):
+    """A region cut into P parts sums R/P + G*P terms, within error_bound's
+    R + G while P <= R/G; every decode plan keeps to it."""
+    r, g = 128, k // 128
+    for m in range(1, tlm.DECODE_M + 1):
+        _, splits = tlm.plan(m, k, n, bits)
+        parts = tlm.pieces(k, bits, r, splits)
+        p = max(-(-r // min(parts)), 1)              # parts per region
+        assert r / p + g * p <= r + g
+        assert (tlm.summed_terms(k, bits, r, splits)
+                <= r + (1 << bits) + g + 4)
+
+
+def test_lut_matmul_plan_keeps_prefill_on_the_old_kernel():
+    """Up to 16 rows split K; the prefill bucket (M > 16) takes no plan:
+    the wrapper launches the one-pass kernel."""
+    assert tlm.DECODE_M == 16
+    for k, n in LLAMA_1B:
+        for m in (17, 176):
+            with pytest.raises(ValueError, match="one-pass"):
+                tlm.plan(m, k, n, 2)
+        assert tlm.plan(4, k, n, 2)[1] > 1
+
+
+def _split_lut(ap, asc, azm, w, *, bits, splits):
+    """The split-K kernel's dataflow in PyTorch: each part's one-hot tables
+    and affine, the parts of a split summed in K order, then the splits in
+    order."""
+    m, k = ap.shape[0], w.shape[0]
+    codes = packing.unpack(ap, bits, k)
+    cpb = packing.codes_per_byte(bits)
+    split_ends = {hi * cpb for _, hi in tlm.split_rows(k // cpb, splits)}
+    out = torch.zeros((m, w.shape[1]))
+    acc, lo = torch.zeros_like(out), 0
+    for hi in np.cumsum(tlm.pieces(k, bits, 128, splits)).tolist():
+        g = lo // 128
+        c, wp = codes[:, lo:hi], w[lo:hi]
+        code_dot = sum(v * ((c == v).float() @ wp)
+                       for v in range(1, 1 << bits))
+        acc = acc + (asc[:, g:g + 1] * code_dot
+                     + azm[:, g:g + 1] * wp.sum(0))
+        if hi in split_ends:
+            out, acc = out + acc, torch.zeros_like(acc)
+        lo = hi
+    return out
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+@pytest.mark.parametrize("splits", [1, 3, 8, 16])
+def test_lut_matmul_split_parts_sum_to_the_pallas_kernel(bits, splits):
+    """Cutting regions into parts (the decode kernel's split K) still
+    computes dequant(a) @ w: the parts' sums match the JAX kernel within
+    error_bound, whose term count the plan's splits keep to."""
+    m, k, n = 4, 512, 40
+    jargs, targs = _lut_inputs(m, k, n, bits)
+    want = np.asarray(jops.lut_matmul(*jargs, bits=bits, group_size=128,
+                                      backend="interpret"))
+    got = _split_lut(*targs, bits=bits, splits=splits)
+    tol = tlm.error_bound(*targs, got, bits=bits, group_size=128).numpy()
+    assert (np.abs(got.numpy() - want) <= tol).all()

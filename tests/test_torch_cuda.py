@@ -204,6 +204,69 @@ def test_lut_matmul_kernel_matches_plain(bits):
         assert bool(((got - want).abs() <= tol).all())
 
 
+def _lut_case(m, k, n, bits, dev, *, offset=0):
+    """Codes of a random x and an f32 w; ``offset`` > 0 starts w that many
+    floats into its storage, so that it is not 16-byte aligned."""
+    x = _t(RNG.normal(size=(m, k)).astype(np.float32), dev)
+    flat = RNG.normal(size=k * n + offset).astype(np.float32) * k ** -0.5
+    w = _t(flat, dev)[offset:].view(k, n)
+    return aq.plain(x, bits=bits, group_size=128), w
+
+
+def _assert_lut_within_bound(a, w, bits, got):
+    want = lm.plain(*a, w, bits=bits, group_size=128)
+    tol = lm.error_bound(*a, w, want, bits=bits, group_size=128)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 7, 16])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_lut_matmul_decode_kernel_at_llama_shapes(bits, m):
+    """The split-K kernel at every llama3.2-1b projection, as plan()
+    launches it."""
+    dev = _card()
+    for k, n in sorted(set(LLAMA_1B)):
+        a, w = _lut_case(m, k, n, bits, dev)
+        before = lm.lut_matmul.launches
+        got = lm.lut_matmul(*a, w, bits=bits, group_size=128)
+        assert lm.lut_matmul.launches == before + 1
+        _assert_lut_within_bound(a, w, bits, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 3, 4])
+def test_lut_matmul_decode_kernel_at_ragged_n(bits):
+    """N that is no multiple of 4, or a w that is not 16-byte aligned,
+    takes 4-byte copies; N = 2024 leaves a partial strip."""
+    dev = _card()
+    for m in (1, 7, 16):
+        for k, n, offset in ((256, 70, 0), (512, 33, 0), (2048, 2024, 0),
+                             (384, 96, 1), (2048, 512, 3)):
+            a, w = _lut_case(m, k, n, bits, dev, offset=offset)
+            _assert_lut_within_bound(
+                a, w, bits, lm.lut_matmul(*a, w, bits=bits, group_size=128))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 7, 16, 176])
+def test_lut_matmul_is_deterministic_and_replays(m):
+    """Two calls give the same bytes (the splits are summed in a fixed
+    order), and a CUDA graph replay of the call gives the eager call's."""
+    dev = _card()
+    a, w = _lut_case(m, 2048, 512, 2, dev)
+    got = lm.lut_matmul(*a, w, bits=2, group_size=128)
+    assert torch.equal(got, lm.lut_matmul(*a, w, bits=2, group_size=128))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = lm.lut_matmul(*a, w, bits=2, group_size=128)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, replayed)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme,a_bits,lut", [("lq8", 8, False),
                                                ("lq2_lut", 2, True)])
