@@ -184,9 +184,8 @@ constexpr int RING_ROWS = 24;      // rows of w a thread holds in shared memory
 template <int BITS> struct SplitWalk {
   static constexpr int CPB = codes_per_byte<BITS>();
   // code bytes per row in one batch, and the K rows they hold (8 at 1 bit,
-  // 4 at 2, 2 at 3, 4 at 4 bits).  On an H100 these small batches (finer
-  // waits, fewer code registers) and a ring of 24 rows ran faster than
-  // batches of 8 rows and rings of 32 or 48 rows (PERF.md)
+  // 4 at 2, 2 at 3, 4 at 4 bits): small batches wait on fewer rows at a
+  // time and hold fewer code registers
   static constexpr int UB = BITS >= 3 ? 2 : 1;
   static constexpr int UK = UB * CPB;
   // batches in the ring: all but one are in flight while one is used
@@ -195,24 +194,28 @@ template <int BITS> struct SplitWalk {
 
 // cp.async: a copy from global to shared memory that holds no register
 // while in flight; each thread waits only for its own copies and reads only
-// what it copied, so the ring needs no barrier
+// what it copied, so the ring needs no barrier.  The "memory" clobbers keep
+// the compiler from moving the ring's reads across a wait (before their
+// copy lands) or across the copy that refills their slot.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src));
+               "l"(src)
+               : "memory");
 }
 // 4 bytes, of which the first src_bytes (4 or 0) are read; the rest is zero
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           int src_bytes) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <int BITS, int BM>

@@ -25,7 +25,7 @@ import torch
 
 from ..core import packing
 from . import build
-from .quant_matmul import DECODE_M, TARGET_BLOCKS, split_rows
+from .splitk import DECODE_M, TARGET_BLOCKS
 
 F32_U = 2.0 ** -24               # unit roundoff of float32
 MAX_BITS = 4
@@ -96,32 +96,6 @@ def error_bound(a_packed, a_scale, a_zmin, w, y_plain, *, bits: int,
             + 2 * F32_U * y_plain.abs())
 
 
-def pieces(k: int, bits: int, group_size: int, splits: int) -> list[int]:
-    """The lengths, in codes, of the parts whose tables the split-K kernel
-    sums: each split's code bytes (:func:`split_rows`) cut at the local
-    regions' edges, in K order."""
-    cpb = packing.codes_per_byte(bits)
-    rb = group_size // cpb                     # code bytes per region
-    out = []
-    for lo, hi in split_rows(k // cpb, splits):
-        while lo < hi:
-            end = min(hi, (lo // rb + 1) * rb)
-            out.append((end - lo) * cpb)
-            lo = end
-    return out
-
-
-def summed_terms(k: int, bits: int, group_size: int, splits: int) -> int:
-    """The number of summed terms that :func:`error_bound` has to cover
-    for the split-K kernel at ``splits``: a part's table sums (its length),
-    the 2^n weighted tables, every part's term (summed in a fixed order
-    across the splits) and the affine's 4.  At ``splits`` whole regions or
-    fewer this is error_bound's R + 2^n + G + 4; a region cut into P parts
-    gives R/P + 2^n + G*P + 4, which is no more while P <= R/G."""
-    p = pieces(k, bits, group_size, splits)
-    return max(p) + (1 << bits) + len(p) + 4
-
-
 @functools.cache
 def plan(m: int, k: int, n: int, bits: int,
          group_size: int = 128) -> tuple[int, int]:
@@ -129,11 +103,12 @@ def plan(m: int, k: int, n: int, bits: int,
     DECODE_M: ``(bm, splits)``, blocks of BM = ``bm`` rows (the least
     power of two that covers M, at most ``BM_MAX[bits]``) by BLOCK_COLS
     columns over one of ``splits`` ranges of code bytes
-    (:func:`split_rows`).  ``splits`` is the least that gives the grid
-    TARGET_BLOCKS blocks, among the splits that keep to error_bound's
-    count of summed terms (:func:`summed_terms`): whole regions each
-    (divisors of G), or each region cut into P equal parts (G*P splits,
-    P <= R/G); where none reaches TARGET_BLOCKS, the most of them.  A
+    (``splitk.split_rows``).  A split covers whole regions (a divisor of
+    G) or a P-th of one (G*P splits, P dividing a region's code bytes).
+    Each table then sums at most R/P codes and G*P parts are summed, so
+    error_bound's count of R + 2^n + G + 4 summed terms holds while
+    R/P + G*P <= R + G, that is P <= R/G.  ``splits`` is the least of
+    these that gives the grid TARGET_BLOCKS blocks, else the most.  A
     larger M runs the one-pass kernel, which takes no plan."""
     if m > DECODE_M:
         raise ValueError(f"M={m} > {DECODE_M} runs the one-pass kernel")
@@ -142,11 +117,11 @@ def plan(m: int, k: int, n: int, bits: int,
     blocks = -(-m // bm) * -(-n // BLOCK_COLS)
     g = k // group_size
     rb = group_size // packing.codes_per_byte(bits)
-    budget = group_size + (1 << bits) + g + 4
     cands = sorted({d for d in range(1, g + 1) if g % d == 0}
-                   | {g * p for p in range(2, rb + 1) if rb % p == 0})
-    ok = [c for c in cands if summed_terms(k, bits, group_size, c) <= budget]
-    splits = next((c for c in ok if blocks * c >= TARGET_BLOCKS), ok[-1])
+                   | {g * p for p in range(2, group_size // g + 1)
+                      if rb % p == 0})
+    splits = next((c for c in cands if blocks * c >= TARGET_BLOCKS),
+                  cands[-1])
     return bm, splits
 
 

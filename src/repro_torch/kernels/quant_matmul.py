@@ -19,11 +19,9 @@ import torch
 from ..core import packing
 from . import build
 from . import ref as _ref
+from .splitk import DECODE_M, TARGET_BLOCKS
 
 _DTYPES = (torch.float32, torch.bfloat16)
-DECODE_M = 16                    # rows up to which the split-K kernel runs
-SMS = 132                        # streaming multiprocessors of an H100 SXM
-TARGET_BLOCKS = 2 * SMS          # split-K grid: two blocks per SM
 # as csrc/quant_matmul.cu: a block's f32 slice of x in shared memory must
 # fit X_SMEM_BYTES, and a block of BM rows owns BLOCK_COLS[BM] columns
 X_SMEM_BYTES = 32 * 1024
@@ -77,7 +75,7 @@ def plan(m: int, k: int, n: int, bits: int) -> tuple[int, int]:
     """The split-K launch of an (M, K) @ (K, N) product with M <=
     DECODE_M: ``(bm, splits)``, blocks of BM = ``bm`` rows by
     ``BLOCK_COLS[bm]`` columns over one of ``splits`` contiguous ranges of
-    packed rows (:func:`split_rows`).  ``splits`` gives the grid as many
+    packed rows (``splitk.split_rows``).  ``splits`` gives the grid as many
     blocks as fit TARGET_BLOCKS (at least SMS while N has fewer strips than
     that) where K has enough packed rows, and keeps a block's f32 slice of
     x within X_SMEM_BYTES.  A larger M runs the one-pass kernel, which
@@ -90,13 +88,6 @@ def plan(m: int, k: int, n: int, bits: int) -> tuple[int, int]:
     splits = max(TARGET_BLOCKS // strips, 1,
                  -(-k * 4 * bm // X_SMEM_BYTES))
     return bm, min(splits, rows)
-
-
-def split_rows(rows: int, splits: int) -> list[tuple[int, int]]:
-    """The packed-row range ``[lo, hi)`` of each split, as the kernel
-    computes it: ``lo = s * rows // splits``."""
-    return [(s * rows // splits, (s + 1) * rows // splits)
-            for s in range(splits)]
 
 
 def check_k(k: int, group_size: int) -> None:

@@ -29,7 +29,7 @@ from repro_torch.core import packing
 from repro_torch.kernels import act_quant as taq
 from repro_torch.kernels import lut_matmul as tlm
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import splitk
 
 RNG = np.random.default_rng(2)
 
@@ -164,6 +164,29 @@ def _blocks(m, n, plan):
     return -(-m // bm) * -(-n // tlm.BLOCK_COLS) * splits
 
 
+def _pieces(k, bits, group_size, splits):
+    """The lengths, in codes, of the parts whose tables the split-K kernel
+    sums: each split's code bytes (``splitk.split_rows``) cut at the local
+    regions' edges, in K order."""
+    cpb = packing.codes_per_byte(bits)
+    rb = group_size // cpb                     # code bytes per region
+    out = []
+    for lo, hi in splitk.split_rows(k // cpb, splits):
+        while lo < hi:
+            end = min(hi, (lo // rb + 1) * rb)
+            out.append((end - lo) * cpb)
+            lo = end
+    return out
+
+
+def _summed_terms(k, bits, group_size, splits):
+    """The summed terms error_bound has to cover for the split-K kernel:
+    the longest part's table sums, the 2^n weighted tables, every part's
+    term (summed in a fixed order across the splits) and the affine's 4."""
+    p = _pieces(k, bits, group_size, splits)
+    return max(p) + (1 << bits) + len(p) + 4
+
+
 @pytest.mark.parametrize("bits", [1, 2, 3, 4])
 @pytest.mark.parametrize("m", [1, 4, 7, 16])
 def test_lut_matmul_plan_fills_the_card_at_decode(m, bits):
@@ -173,7 +196,7 @@ def test_lut_matmul_plan_fills_the_card_at_decode(m, bits):
         bm, splits = tlm.plan(m, k, n, bits)
         assert bm <= tlm.BM_MAX[bits] and bm & (bm - 1) == 0
         assert bm >= min(m, tlm.BM_MAX[bits])
-        assert _blocks(m, n, (bm, splits)) >= tqm.SMS
+        assert _blocks(m, n, (bm, splits)) >= splitk.SMS
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4])
@@ -184,11 +207,11 @@ def test_lut_matmul_splits_cover_k_once_in_whole_code_bytes(k, splits,
     """The splits cover K's code bytes once, in order; each part is whole
     code bytes inside one region, and the parts add up to K."""
     cpb = packing.codes_per_byte(bits)
-    ranges = tlm.split_rows(k // cpb, splits)
+    ranges = splitk.split_rows(k // cpb, splits)
     assert ranges[0][0] == 0 and ranges[-1][1] == k // cpb
     assert all(lo < hi for lo, hi in ranges)
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    parts = tlm.pieces(k, bits, 128, splits)
+    parts = _pieces(k, bits, 128, splits)
     assert sum(parts) == k and all(p % cpb == 0 and p > 0 for p in parts)
     edges = np.cumsum([0] + parts)
     for lo, hi in zip(edges, edges[1:]):
@@ -203,10 +226,10 @@ def test_lut_matmul_plan_keeps_to_the_error_budget(k, n, bits):
     r, g = 128, k // 128
     for m in range(1, tlm.DECODE_M + 1):
         _, splits = tlm.plan(m, k, n, bits)
-        parts = tlm.pieces(k, bits, r, splits)
+        parts = _pieces(k, bits, r, splits)
         p = max(-(-r // min(parts)), 1)              # parts per region
         assert r / p + g * p <= r + g
-        assert (tlm.summed_terms(k, bits, r, splits)
+        assert (_summed_terms(k, bits, r, splits)
                 <= r + (1 << bits) + g + 4)
 
 
@@ -228,10 +251,10 @@ def _split_lut(ap, asc, azm, w, *, bits, splits):
     m, k = ap.shape[0], w.shape[0]
     codes = packing.unpack(ap, bits, k)
     cpb = packing.codes_per_byte(bits)
-    split_ends = {hi * cpb for _, hi in tlm.split_rows(k // cpb, splits)}
+    split_ends = {hi * cpb for _, hi in splitk.split_rows(k // cpb, splits)}
     out = torch.zeros((m, w.shape[1]))
     acc, lo = torch.zeros_like(out), 0
-    for hi in np.cumsum(tlm.pieces(k, bits, 128, splits)).tolist():
+    for hi in np.cumsum(_pieces(k, bits, 128, splits)).tolist():
         g = lo // 128
         c, wp = codes[:, lo:hi], w[lo:hi]
         code_dot = sum(v * ((c == v).float() @ wp)

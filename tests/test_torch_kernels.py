@@ -27,6 +27,7 @@ from repro_torch.core import kvwire as tkv
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import quant_matmul as tqm
+from repro_torch.kernels import splitk
 
 RNG = np.random.default_rng(1)
 
@@ -210,16 +211,16 @@ def test_quant_matmul_plan_fills_the_card_at_decode(m, bits):
         bm, splits = tqm.plan(m, k, n, bits)
         assert bm >= m and bm in tqm.BLOCK_COLS
         strips = -(-n // tqm.BLOCK_COLS[bm])        # the grid's columns
-        assert strips * splits >= tqm.SMS
+        assert strips * splits >= splitk.SMS
         rows = k // (8 // bits if bits in (1, 2, 4) else 1)
-        widest = max(hi - lo for lo, hi in tqm.split_rows(rows, splits))
+        widest = max(hi - lo for lo, hi in splitk.split_rows(rows, splits))
         assert widest * (k // rows) * bm * 4 <= tqm.X_SMEM_BYTES
 
 
 @pytest.mark.parametrize("rows,splits", [(1024, 132), (4096, 33), (1024, 9),
                                          (7, 7), (64, 1), (1000, 3)])
 def test_quant_matmul_splits_cover_k_once(rows, splits):
-    ranges = tqm.split_rows(rows, splits)
+    ranges = splitk.split_rows(rows, splits)
     assert len(ranges) == splits
     assert ranges[0][0] == 0 and ranges[-1][1] == rows
     assert all(lo < hi for lo, hi in ranges)                  # none empty
