@@ -10,8 +10,9 @@ Phases, each printed as one JSON line:
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the main paths' shapes: quant_matmul, paged_attention and
            lut_matmul within computed error bounds, act_quant byte for byte;
-           quant_matmul and lut_matmul also give the same bytes twice and
-           from a CUDA graph replay
+           quant_matmul, paged_attention (also at 4096 keys a slot and with
+           splits that hold no live key) and lut_matmul also give the same
+           bytes twice and from a CUDA graph replay
   serve    llama3.2-1b at its published widths (random weights from a
            seed) through the port's Server, 4-bit paged KV, fused
            attention, bf16, under three schemes: lq4w (weight-only,
@@ -25,10 +26,10 @@ Phases, each printed as one JSON line:
            then lq8 and lq2_lut, whose act_quant codes are compared call by
            call (see phase_parity_act)
   timing   CUDA-event times of each kernel (device time from CUDA-graph
-           replays where the kernel is shorter than its wrapper's host
-           work: quant_matmul, act_quant, lut_matmul), its plain version
-           and a library call computing the same function, beside the
-           card's bound
+           replays, with the eager loop that the wrapper's host work paces
+           beside it), its plain version and a library call computing the
+           same function, beside the card's bound; paged_attention at the
+           serve shape and at 4096 keys a slot
 
 then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -252,21 +253,26 @@ def check_quant_matmul(dev) -> dict:
             "deterministic": True, "graph_replay_equal": True}
 
 
-def paged_case(dev, bits, dtype, lq, gen):
+LONG_CONTEXT = 4096              # keys per slot of the long-context case
+
+
+def paged_case(dev, bits, dtype, lq, gen, *, pos=None, pps=None):
     """A decode step's paged-attention inputs at the main path's shapes:
-    4 slots, 8 kv heads x 4 groups, head_dim 64, page 16, 11 table entries
-    per slot, slots at ragged positions; scratch page 0 is filled with
-    large garbage and table entries past each slot's live pages point at
-    it, as the pool hands them over."""
+    4 slots, 8 kv heads x 4 groups, head_dim 64, page 16, ``pps`` table
+    entries per slot (11 by default, the serve phase's 176-token bucket),
+    slots at ragged positions ``pos``; scratch page 0 is filled with large
+    garbage and table entries past each slot's live pages point at it, as
+    the pool hands them over."""
     from repro_torch.core import kvwire
-    b, kvh, g, d, pps = SLOTS, 8, 4, 64, MAX_CONTEXT // PAGE
+    pps = pps or MAX_CONTEXT // PAGE
+    pos = pos or [159, 160 - lq, 150, 37]
+    b, kvh, g, d = len(pos), 8, 4, 64
     n_pages = b * pps + 1
     kf = torch.randn((n_pages, PAGE, kvh, d), generator=gen, device=dev)
     vf = torch.randn((n_pages, PAGE, kvh, d), generator=gen, device=dev)
     kf[0], vf[0] = 1e4, -1e4
     q = torch.randn((b, lq, kvh, g, d), generator=gen, device=dev).to(dtype)
-    pos = torch.tensor([159, 160 - lq, 150, 37], dtype=torch.int32,
-                       device=dev)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     table = torch.zeros((b, pps), dtype=torch.int32, device=dev)
     for i in range(b):
         live = (int(pos[i]) + lq - 1) // PAGE + 1
@@ -277,35 +283,63 @@ def paged_case(dev, bits, dtype, lq, gen):
             kvwire.quantize_kv(vf, bits, KV_GROUP), table, pos)
 
 
+def paged_cases(lq):
+    """The checked cases beyond the serve shape's: ``(name, bits, dtype,
+    keyword arguments of paged_case, forced splits)``.  Long context: 4
+    slots near 4096 keys; empty splits: a 64-entry table whose slots sit at
+    positions 0 and 37, so that most splits hold only scratch or masked
+    pages (under plan()'s splits and under one split per entry)."""
+    long = [LONG_CONTEXT - lq, LONG_CONTEXT - 9 - lq, 4000, 3901]
+    return [("long_context", 4, torch.bfloat16,
+             {"pos": long, "pps": LONG_CONTEXT // PAGE}, None),
+            ("empty_splits", 4, torch.bfloat16,
+             {"pos": [0, 37], "pps": 64}, None),
+            ("empty_splits_one_entry_each", 4, torch.bfloat16,
+             {"pos": [0, 37], "pps": 64}, 64)]
+
+
 def check_paged_attention(dev) -> dict:
+    """The kernels within ``paged_attention.error_bound`` of the plain
+    version: bits None/8/4/2/1 x f32/bf16 q x Lq 1/3 at the serve shape,
+    then the long-context and empty-split cases at 4 bits, bf16, Lq 1/3.
+    Every case is called twice and replayed from a CUDA graph (same
+    bytes), and every dequant selector the case takes gives the same
+    bytes; dequant='lut' at 8 bits must raise."""
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cases, worst = 0, {"abs": 0.0, "rel": 0.0, "ratio": 0.0}
-    for bits in (None, 8, 4, 2, 1):
-        for dtype in (torch.float32, torch.bfloat16):
-            for lq in (1, 3):
-                q, kp, vp, table, pos = paged_case(dev, bits, dtype, lq, gen)
-                got = pa.paged_attention(q, kp, vp, table, pos)
-                want = pa.plain(q, kp, vp, table.long(), pos.long())
-                torch.cuda.synchronize()
-                tol = pa.error_bound(q, kp, vp, table, pos, want)
-                err = (got.float() - want.float()).abs()
-                ratio = float((err / tol).max())
-                if not bool((err <= tol).all()):
-                    raise AssertionError(
-                        f"paged_attention bits={bits} {dtype} Lq={lq}: max "
-                        f"err {float(err.max())}, {ratio:.2f}x the bound")
-                worst["abs"] = max(worst["abs"], float(err.max()))
-                worst["rel"] = max(worst["rel"], float(
-                    (err / want.float().abs().clamp_min(1e-6)).max()))
-                worst["ratio"] = max(worst["ratio"], ratio)
-                cases += 1
-    q, kp, vp, table, pos = paged_case(dev, 4, torch.bfloat16, 1, gen)
-    auto = pa.paged_attention(q, kp, vp, table, pos)
-    for dq in ("affine", "lut"):          # both selectors run the kernel
-        if not torch.equal(auto, pa.paged_attention(q, kp, vp, table, pos,
-                                                    dequant=dq)):
-            raise AssertionError(f"dequant={dq} differs from auto")
+    cases, worst = [], {"abs": 0.0, "rel": 0.0, "ratio": 0.0}
+    todo = [(f"bits={bits} {dtype} Lq={lq}", bits, dtype, lq, {}, None)
+            for bits in (None, 8, 4, 2, 1)
+            for dtype in (torch.float32, torch.bfloat16) for lq in (1, 3)]
+    todo += [(f"{name} Lq={lq}", bits, dtype, lq, kw, splits)
+             for lq in (1, 3)
+             for name, bits, dtype, kw, splits in paged_cases(lq)]
+    for where, bits, dtype, lq, kw, splits in todo:
+        q, kp, vp, table, pos = paged_case(dev, bits, dtype, lq, gen, **kw)
+
+        def call(dq="auto"):
+            return pa.paged_attention(q, kp, vp, table, pos, dequant=dq,
+                                      splits=splits)
+        got = same_bytes_thrice(call, f"paged_attention {where}")
+        for dq in ("affine",) if bits == 8 else ("affine", "lut"):
+            if not torch.equal(got, call(dq)):
+                raise AssertionError(f"paged_attention {where}: "
+                                     f"dequant={dq} differs from auto")
+        want = pa.plain(q, kp, vp, table.long(), pos.long())
+        tol = pa.error_bound(q, kp, vp, table, pos, want)
+        err = (got.float() - want.float()).abs()
+        ratio = float((err / tol).max())
+        if not bool((err <= tol).all()) or bool(got.isnan().any()):
+            raise AssertionError(
+                f"paged_attention {where}: max err {float(err.max())}, "
+                f"{ratio:.2f}x the bound")
+        worst["abs"] = max(worst["abs"], float(err.max()))
+        worst["rel"] = max(worst["rel"], float(
+            (err / want.float().abs().clamp_min(1e-6)).max()))
+        worst["ratio"] = max(worst["ratio"], ratio)
+        b, _, kvh, g, _ = q.shape
+        cases.append({"case": where, "splits": splits or pa.plan(
+            b, kvh, lq * g, table.shape[1], PAGE), "err_over_bound": ratio})
     q, kp, vp, table, pos = paged_case(dev, 8, torch.bfloat16, 1, gen)
     try:
         pa.paged_attention(q, kp, vp, table, pos, dequant="lut")
@@ -313,8 +347,10 @@ def check_paged_attention(dev) -> dict:
         pass
     else:
         raise AssertionError("dequant='lut' at 8 bits did not raise")
-    return {"cases": cases, "max_abs_err": worst["abs"],
-            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"]}
+    return {"cases": len(cases), "max_abs_err": worst["abs"],
+            "max_rel_err": worst["rel"], "max_err_over_bound": worst["ratio"],
+            "deterministic": True, "graph_replay_equal": True,
+            "selectors_equal": True, "per_case": cases}
 
 
 # one llama3.2-1b layer's 7 projections (q k v o gate up down): where each
@@ -597,8 +633,11 @@ def _device_busy(prof, steps: int) -> dict:
                        e.count / steps) for e in prof.key_averages()
                       if e.self_device_time_total > 0),
                      key=lambda r: -r[1])
+    paged = sum(e.self_device_time_total for e in prof.key_averages()
+                if "paged_" in e.key)
     return {"device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_ops_per_step": len(spans) / steps,
+            "paged_attention_ms_per_step": paged / 1e3 / steps,
             "top_device_ms_per_step": [
                 {"name": k[:60], "ms": ms, "per_step": c}
                 for k, ms, c in by_name[:8]]}
@@ -944,19 +983,39 @@ def time_quant_matmul(engine, cfg) -> dict:
 
 
 def time_paged_attention(dev) -> dict:
-    """One layer's paged attention at decode: 4 slots near 160 tokens,
-    bf16 q, 4-bit pages, distinct pages per slot."""
-    from repro_torch.core import kvwire
+    """One layer's paged attention at decode, bf16 q, 4-bit pages, distinct
+    pages per slot: 4 slots near 160 keys (the serve shape), and in
+    ``long_context`` near 4096.  ``ms`` and ``library_ms`` are device time
+    from CUDA-graph replays; ``eager_ms`` and ``library_eager_ms`` the same
+    calls in an eager loop, which host work paces once the kernel is
+    short; ``kernel_us`` splits a call between the split kernel and the
+    combine; ``plan`` is the split count with the block geometry."""
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
-    q, kp, vp, table, pos = paged_case(dev, KV_BITS, torch.bfloat16, 1, gen)
-    pos = torch.tensor([159, 158, 152, 160], dtype=torch.int32, device=dev)
+    out = timed_paged(dev, gen, [159, 158, 152, 160], MAX_CONTEXT // PAGE)
+    q, kp, vp, table, pos = out.pop("inputs")
+    out["plain_ms"] = cuda_time(lambda: pa.plain(q, kp, vp, table.long(),
+                                                 pos.long()), 50)
+    long = timed_paged(dev, gen, [LONG_CONTEXT - 1] * 4,
+                       LONG_CONTEXT // PAGE)
+    long.pop("inputs")
+    return {**out, "long_context": long,
+            "library": "scaled_dot_product_attention on the gathered, "
+                       "dequantized bf16 cache"}
+
+
+def timed_paged(dev, gen, pos, pps) -> dict:
+    """The timing fields of one paged-attention shape (see
+    time_paged_attention), with the bound of these inputs."""
+    from repro_torch.core import kvwire
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, table, posb = paged_case(dev, KV_BITS, torch.bfloat16, 1,
+                                        gen, pos=pos, pps=pps)
     b, lq, kvh, g, d = q.shape
-    for i in range(b):
-        live = (int(pos[i]) + lq - 1) // PAGE + 1
+    for i in range(b):                    # distinct pages, no scratch
+        live = (pos[i] + lq - 1) // PAGE + 1
         table[i] = 0
-        table[i, :live] = 1 + i * (MAX_CONTEXT // PAGE) \
-            + torch.arange(live, device=dev)
+        table[i, :live] = 1 + i * pps + torch.arange(live, device=dev)
     tbl = table.long()
     kk = kvwire.dequantize_kv(kvwire.gather_pages(kp, tbl), d,
                               torch.bfloat16)
@@ -966,25 +1025,32 @@ def time_paged_attention(dev) -> dict:
     qs = q.reshape(b, lq, kvh * g, d).transpose(1, 2)            # (B,H,1,D)
     ks, vs = kk.transpose(1, 2), vv.transpose(1, 2)              # (B,KV,S,D)
     mask = (torch.arange(s, device=dev)[None, :]
-            <= pos.long()[:, None])[:, None, None, :]
+            <= posb.long()[:, None])[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ntok = [int(p) + lq for p in pos]
+
+    def kernel():
+        return pa.paged_attention(q, kp, vp, table, posb)
+
+    def library():
+        return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+    ntok = [p + lq for p in pos]
     per_tok = kvh * 2 * (d * KV_BITS // 8 + 8 * (d // KV_GROUP))
     nbytes = sum(ntok) * per_tok + 2 * q.numel() * q.element_size() \
-        + table.numel() * 4 + pos.numel() * 4
+        + table.numel() * 4 + posb.numel() * 4
     flops = sum(4 * n * kvh * g * d for n in ntok)
     b_ms, b_by = bound(nbytes, flops)
-    return {"ms": cuda_time(lambda: pa.paged_attention(q, kp, vp, table,
-                                                       pos), 500),
-            "plain_ms": cuda_time(lambda: pa.plain(q, kp, vp, tbl,
-                                                   pos.long()), 50),
-            "library_ms": cuda_time(lambda: sdpa(qs, ks, vs, attn_mask=mask,
-                                                 enable_gqa=True), 500),
+    splits = pa.plan(b, kvh, lq * g, pps, PAGE)
+    return {"ms": graph_time(kernel), "eager_ms": cuda_time(kernel, 500),
+            "library_ms": graph_time(library),
+            "library_eager_ms": cuda_time(library, 500),
             "bound_ms": b_ms, "bound_by": b_by,
+            "kernel_us": kernel_split_us(kernel),
+            "plan": {"splits": splits, "blocks": b * kvh * splits,
+                     "lanes_tokens_rowteams_tokenteams":
+                     list(pa.geometry(lq * g, d, PAGE, pps, splits))},
             "shape": f"q {tuple(q.shape)} bf16, {KV_BITS}-bit pages, page "
-                     f"{PAGE}, tokens per slot {ntok}",
-            "library": "scaled_dot_product_attention on the gathered, "
-                       "dequantized bf16 cache"}
+                     f"{PAGE}, {pps} table entries, tokens per slot {ntok}",
+            "inputs": (q, kp, vp, table, posb)}
 
 
 def time_act_quant(dev) -> dict:

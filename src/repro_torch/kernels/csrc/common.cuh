@@ -1,5 +1,6 @@
 // Shared helpers of the port's CUDA kernels: f32 <-> storage conversions,
-// the LQ wire format's codes per byte, and the fixed-order reduction of
+// the LQ wire format's codes per byte, cp.async copies into shared memory
+// (lut_matmul.cu and paged_attention.cu), and the fixed-order reduction of
 // split-K partial tiles (quant_matmul.cu and lut_matmul.cu).
 #pragma once
 #include <cuda_bf16.h>
@@ -26,6 +27,38 @@ template <int BITS> __host__ __device__ constexpr int codes_per_byte() {
 }
 
 namespace {
+
+// cp.async: a copy from global to shared memory that holds no register
+// while in flight.  It lands after cp_async_wait of its group, and is seen
+// by other threads after a barrier that follows the wait.  The "memory"
+// clobbers keep the compiler from moving shared-memory reads across a wait
+// (before their copy lands) or across the copy that refills their slot.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+// 4 bytes, of which the first src_bytes (4 or 0) are read; the rest is zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // out[m, n] = sum over splits of ws[s, m, n] in a fixed order: a block owns
 // 32 outputs; its warp q sums splits q, q + 8, ... and the 8 warp sums are

@@ -192,31 +192,8 @@ template <int BITS> struct SplitWalk {
   static constexpr int STAGES = RING_ROWS / UK;
 };
 
-// cp.async: a copy from global to shared memory that holds no register
-// while in flight; each thread waits only for its own copies and reads only
-// what it copied, so the ring needs no barrier.  The "memory" clobbers keep
-// the compiler from moving the ring's reads across a wait (before their
-// copy lands) or across the copy that refills their slot.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
-               "l"(src)
-               : "memory");
-}
-// 4 bytes, of which the first src_bytes (4 or 0) are read; the rest is zero
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// The ring is filled by cp.async (common.cuh): each thread waits only for
+// its own copies and reads only what it copied, so it needs no barrier.
 
 template <int BITS, int BM>
 __global__ void __launch_bounds__(SPLIT_THREADS)

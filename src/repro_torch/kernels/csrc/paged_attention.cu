@@ -7,23 +7,62 @@
 // uint8 with f32 scale/zmin (n_pages, ps, KV, D/gs), at kv bits 8/4/2/1.
 // table (B, P) int32 holds each slot's physical pages in order; pos (B,)
 // int32 the absolute position of each slot's first query row.  Key
-// p*ps + r is visible to query row (lq, g) iff p*ps + r <= pos[b] + lq.
+// p*ps + r is visible to query row i = lq*G + g iff p*ps + r <= pos[b] + lq.
 // The output has q's shape and dtype.
 //
 // What bounds it on an H100: bytes.  Each cached token is read once per kv
-// head (D*bits/8 code bytes plus 8 bytes per region) and used by the G*Lq
-// query rows of that head only, a handful of operations per byte.
+// head (D*bits/8 code bytes plus 8 bytes per region) and used by the Lq*G
+// query rows of that head only, a handful of operations per byte.  At
+// decode a slot holds a few hundred to a few thousand tokens, so the card
+// is filled only if the page walk of one (slot, kv head) is cut across
+// blocks.
 //
-// Design: one block per (slot, kv head); the block holds all Lq*G query
-// rows of that head, so each page is read from memory once and serves
-// every GQA group and every query of a speculative run.  The block walks
-// its table entries in order and stops at the slot's last live page
-// (pages past it are all masked).  A page's K and V rows are dequantized
-// in registers (code * scale + zmin) into shared memory as f32, never as an
-// fp page in device memory.  Scores, the running max, the denominator and
-// the accumulator are f32; masked probabilities are set to zero after the
-// running-max update, so a page whose keys are all masked (scratch page 0
-// behind a padded table entry) adds nothing.
+// The TPU kernel walks the pages on the sequential ("arbitrary") grid axis
+// with the softmax state in VMEM scratch.  Blocks here run in no order, so
+// the walk is split and the state of each split goes through device memory
+// (flash-decoding), in two kernels:
+//
+// paged_split_kernel, one block per (slot, kv head, split).  Split s of S
+// covers table entries [s*P/S, (s+1)*P/S) (kernels/splitk.py split_rows; S
+// from plan() in kernels/paged_attention.py, from shapes alone) and walks
+// only the keys below pos[b] + Lq: a split past the slot's live keys writes
+// the empty partial (m = NEG_INF, l = 0, acc = 0) and returns, and the keys
+// after pos in the last live page are never read.  The block reads pos and
+// the table itself, so the launch needs no value from the device.
+//   - All Lq*G query rows of the head are in the block, so each page is
+//     read once per kv head: a warp holds RT = 4 rows (q in a shared-memory
+//     tile, the f32 accumulator in registers), and ceil(R/4) warps (a "row
+//     team") use the same staged keys.
+//   - Bytes: each key's rows (codes, scale and zmin of K and V, or the fp
+//     rows) are copied into the team's ring in shared memory by cp.async,
+//     16 bytes a copy where a row's length and the pointers allow (a 4-bit
+//     row of D 64 is two 16-byte copies of codes and one each of scale and
+//     zmin), else 8 or 4, else plain loads (a 1-bit row of D 8 and the
+//     like).  The ring holds STAGES chunks; two are in flight while the
+//     warp computes on the third, and no register holds them.
+//   - Work: a key's row is cut across L lanes of E elements (E = 8, or 16
+//     past D 256; L*E >= D), a "token group", so a warp takes a chunk of
+//     T = 32/L keys at once.  Each lane dequantizes its E codes in
+//     registers (code * scale + zmin; a code becomes a float by the
+//     exponent trick, with no conversion instruction), adds its RT partial
+//     dots, and the L lanes sum them by shuffles.  The running max is the
+//     warp's (shuffles across its T keys), so the rescale of l and acc is a
+//     uniform branch taken only when the max grows (exp(0) = 1 otherwise,
+//     the same bytes as rescaling always).  Masked probabilities are zero
+//     after the max update, as in the TPU kernel.  Scores are scaled by
+//     log2(e) and exponentiated by exp2.
+//   - Up to 4 row teams ("token teams") take interleaved chunks of the
+//     split when it is long enough.  At the end each warp sums its T token
+//     groups by shuffles, and the token teams' states are combined in team
+//     order through shared memory into the split's partial (m, l,
+//     acc[R][D]), f32, in the workspace.
+//
+// paged_combine_kernel, one block per (slot, kv head): for each row,
+// M = max_s m_s, then out = sum_s acc_s 2^(m_s - M) / max(sum_s l_s
+// 2^(m_s - M), 1e-30) (m in log2 units), summed in split order, in q's
+// dtype.  An empty split
+// adds exactly 0 (key 0 is always visible, so M is finite).  No atomics
+// anywhere: every call, and a CUDA-graph replay, gives the same bytes.
 //
 // The Pallas body has a second dequant form, "lut" (bits <= 4), which
 // rewrites q.k and p.v as sums of binary matmuls so that the TPU's matrix
@@ -31,159 +70,539 @@
 // bound by bytes, not by operations, so the "affine" and "lut" selectors
 // both run this one in-register-dequant kernel; whether a LUT form pays on
 // Hopper is an open question in ROADMAP.md.
+#include <cstdint>
+#include <initializer_list>
+
 #include "common.cuh"
 
 namespace repro_torch {
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 128;
+constexpr int RT = 4;          // query rows a warp holds (ROWS_PER_WARP)
+constexpr int STAGES = 3;      // chunks in a ring
+constexpr int MAX_WARPS = 8;   // row teams x token teams (MAX_ROWS = 32)
+constexpr unsigned FULL = 0xffffffffu;
 
-// Element d of cache row `row` (= (page * ps + r) * KV + head) as f32.
-template <int BITS, typename PT>
-__device__ __forceinline__ float load_kv(const PT* __restrict__ data,
-                                         const float* __restrict__ scale,
-                                         const float* __restrict__ zmin,
-                                         size_t row, int d, int D, int gs) {
-  if constexpr (BITS == 0) {
-    return to_f32(data[row * D + d]);
-  } else {
-    constexpr int CPB = codes_per_byte<BITS>();
-    constexpr unsigned MASK = (1u << BITS) - 1u;
-    const unsigned byte = data[row * (D / CPB) + d / CPB];
-    const float code = (float)((byte >> ((d % CPB) * BITS)) & MASK);
-    const size_t reg = row * (D / gs) + d / gs;
-    return code * scale[reg] + zmin[reg];
-  }
-}
-
-// BITS == 0: fp pages of type PT; else wire pages (PT = uint8_t).
-template <typename QT, typename PT, int BITS>
-__global__ void __launch_bounds__(THREADS)
-paged_attention_kernel(const QT* __restrict__ q, const PT* __restrict__ kd,
-                       const float* __restrict__ ks,
-                       const float* __restrict__ kz,
-                       const PT* __restrict__ vd,
-                       const float* __restrict__ vs,
-                       const float* __restrict__ vz,
-                       const int* __restrict__ table,
-                       const int* __restrict__ pos, QT* __restrict__ out,
-                       int Lq, int KV, int G, int D, int ps, int P, int gs,
-                       float sm_scale) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int R = Lq * G;
-  const int DK = D + 1;                // padded K row: no bank conflicts
-  float* q_s = smem;                   // R * D
-  float* acc = q_s + R * D;            // R * D
-  float* k_s = acc + R * D;            // ps * DK
-  float* v_s = k_s + ps * DK;          // ps * D
-  float* s_s = v_s + ps * D;           // R * ps scores, then probabilities
-  float* m_s = s_s + R * ps;           // R running max
-  float* l_s = m_s + R;                // R running denominator
-  float* c_s = l_s + R;                // R this page's correction factor
-  const int tid = threadIdx.x;
-
-  // row i = lq * G + g of this head; q/out index ((b, lq, h, g), d)
-  for (int e = tid; e < R * D; e += THREADS) {
-    const int i = e / D, d = e % D;
-    const int lq = i / G, g = i % G;
-    q_s[e] = to_f32(q[((((size_t)b * Lq + lq) * KV + h) * G + g) * D + d]);
-    acc[e] = 0.f;
-  }
-  for (int i = tid; i < R; i += THREADS) {
-    m_s[i] = NEG_INF;
-    l_s[i] = 0.f;
-  }
-  const int p0 = pos[b];
-  const int n_live = min(P, (p0 + Lq - 1) / ps + 1);
-  __syncthreads();
-
-  for (int p = 0; p < n_live; ++p) {
-    const size_t page = (size_t)table[(size_t)b * P + p];
-    for (int e = tid; e < ps * D; e += THREADS) {
-      const int r = e / D, d = e % D;
-      const size_t row = (page * ps + r) * KV + h;
-      k_s[r * DK + d] = load_kv<BITS>(kd, ks, kz, row, d, D, gs);
-      v_s[e] = load_kv<BITS>(vd, vs, vz, row, d, D, gs);
-    }
-    __syncthreads();
-    for (int e = tid; e < R * ps; e += THREADS) {
-      const int i = e / ps, r = e % ps;
-      float dot = 0.f;
-      for (int d = 0; d < D; ++d) dot += q_s[i * D + d] * k_s[r * DK + d];
-      s_s[e] = dot * sm_scale;
-    }
-    __syncthreads();
-    for (int i = tid; i < R; i += THREADS) {
-      const int qpos = p0 + i / G;
-      const int kpos0 = p * ps;
-      float mx = m_s[i];
-      for (int r = 0; r < ps; ++r)
-        if (kpos0 + r <= qpos) mx = fmaxf(mx, s_s[i * ps + r]);
-      float sum = 0.f;
-      for (int r = 0; r < ps; ++r) {
-        const float pr = (kpos0 + r <= qpos) ? expf(s_s[i * ps + r] - mx) : 0.f;
-        s_s[i * ps + r] = pr;
-        sum += pr;
-      }
-      const float corr = expf(m_s[i] - mx);
-      l_s[i] = l_s[i] * corr + sum;
-      m_s[i] = mx;
-      c_s[i] = corr;
-    }
-    __syncthreads();
-    for (int e = tid; e < R * D; e += THREADS) {
-      const int i = e / D, d = e % D;
-      float pv = 0.f;
-      for (int r = 0; r < ps; ++r) pv += s_s[i * ps + r] * v_s[r * D + d];
-      acc[e] = acc[e] * c_s[i] + pv;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < R * D; e += THREADS) {
-    const int i = e / D, d = e % D;
-    const int lq = i / G, g = i % G;
-    out[((((size_t)b * Lq + lq) * KV + h) * G + g) * D + d] =
-        from_f32<QT>(acc[e] / fmaxf(l_s[i], 1e-30f));
-  }
-}
-
-struct Args {
-  const void *q, *kd, *ks, *kz, *vd, *vs, *vz, *table, *pos;
-  void* out;
-  int B, Lq, KV, G, D, ps, P, gs;
-  float sm_scale;
-  size_t smem;
-  cudaStream_t stream;
+// The launch: shapes, the block's geometry (from the wrapper's geometry())
+// and the byte layout of a key's slot in the ring.
+struct Params {
+  const void* q;
+  const unsigned char *kd, *vd;     // codes or fp rows
+  const unsigned char *ks, *kz, *vs, *vz;
+  const int* table;
+  const int* pos;
+  float* ws;
+  int Lq, KV, G, D, ps, P, S, gs, R;
+  int L, T, NT, TW;                 // lanes a key, groups a warp, teams
+  int row_bytes, grp_bytes;         // a key's code (or fp) row, scale row
+  int row_pad, grp_pad;             // the same, padded to 16 in the ring
+  int slot_bytes;                   // K then V: row (+ scale + zmin)
+  int wr, wg;                       // copy widths of rows and scale rows
+  int zero;                         // the slots have padding to clear
+  int q_bf16, q_vec;                // q's type; 16-byte loads of q rows
+  float sm_scale, inv_ps;
 };
 
-template <typename QT, typename PT, int BITS>
-int launch(const Args& a) {
-  const dim3 grid(a.B, a.KV);
-  paged_attention_kernel<QT, PT, BITS><<<grid, THREADS, a.smem, a.stream>>>(
-      static_cast<const QT*>(a.q), static_cast<const PT*>(a.kd),
-      static_cast<const float*>(a.ks), static_cast<const float*>(a.kz),
-      static_cast<const PT*>(a.vd), static_cast<const float*>(a.vs),
-      static_cast<const float*>(a.vz), static_cast<const int*>(a.table),
-      static_cast<const int*>(a.pos), static_cast<QT*>(a.out), a.Lq, a.KV,
-      a.G, a.D, a.ps, a.P, a.gs, a.sm_scale);
-  return (int)cudaGetLastError();
+// bytes of a lane's E elements of a row
+template <int BITS, typename PT, int E>
+__host__ __device__ constexpr int lane_bytes() {
+  return BITS == 0 ? E * (int)sizeof(PT) : E * BITS / 8;
+}
+
+// The lane's E elements of a row (codes at `row`, scale/zmin at `sc`/`zm`,
+// all in the ring), dequantized in registers.  gi[e] is element e's region
+// (GROUPED: gs not a multiple of E) or gi[0] the lane's one region.
+template <int BITS, typename PT, bool GROUPED, int E>
+__device__ __forceinline__ void load_row(const unsigned char* row,
+                                         const float* sc, const float* zm,
+                                         const int* gi, float (&x)[E]) {
+  if constexpr (BITS == 0) {
+    if constexpr (sizeof(PT) == 4) {
+#pragma unroll
+      for (int c = 0; c < E / 4; ++c) {
+        const float4 v = reinterpret_cast<const float4*>(row)[c];
+        x[4 * c] = v.x, x[4 * c + 1] = v.y, x[4 * c + 2] = v.z,
+        x[4 * c + 3] = v.w;
+      }
+    } else {                          // bf16: the high half of an f32
+#pragma unroll
+      for (int c = 0; c < E / 8; ++c) {
+        const uint4 v = reinterpret_cast<const uint4*>(row)[c];
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[8 * c + 2 * i] = __uint_as_float(w[i] << 16);
+          x[8 * c + 2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+        }
+      }
+    }
+  } else {
+    constexpr unsigned MASK = (1u << BITS) - 1u;
+    constexpr int NB = E * BITS / 8;              // 16 down to 1 bytes
+    unsigned w[NB >= 4 ? NB / 4 : 1];
+    if constexpr (NB == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    } else if constexpr (NB == 8) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row);
+      w[0] = v.x, w[1] = v.y;
+    } else if constexpr (NB == 4) {
+      w[0] = *reinterpret_cast<const unsigned*>(row);
+    } else if constexpr (NB == 2) {
+      w[0] = *reinterpret_cast<const unsigned short*>(row);
+    } else {
+      w[0] = *row;
+    }
+    float s = sc[gi[0]], z = zm[gi[0]];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const unsigned code = (w[e * BITS / 32] >> ((e * BITS) % 32)) & MASK;
+      // 2^23 + code as a float, minus 2^23: the code, exactly
+      const float f = __uint_as_float(0x4b000000u | code) - 8388608.f;
+      if constexpr (GROUPED) s = sc[gi[e]], z = zm[gi[e]];
+      x[e] = fmaf(f, s, z);
+    }
+  }
+}
+
+// one copy of w bytes (16/8/4 by cp.async, 2/1 by plain loads)
+__device__ __forceinline__ void copy_bytes(unsigned char* dst,
+                                           const unsigned char* src, int w) {
+  switch (w) {
+    case 16: cp_async16(dst, src); break;
+    case 8: cp_async8(dst, src); break;
+    case 4: cp_async4(dst, src, 4); break;
+    case 2:
+      *reinterpret_cast<unsigned short*>(dst) =
+          *reinterpret_cast<const unsigned short*>(src);
+      break;
+    default: *dst = *src;
+  }
+}
+
+// Barrier of one row team (its NT warps), or the warp alone.
+__device__ __forceinline__ void team_sync(int team, int nt) {
+  if (nt == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + team), "r"(32 * nt)
+                 : "memory");
+  }
+}
+
+template <typename PT, int BITS, bool GROUPED, int E>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+paged_split_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool QUANT = BITS != 0;
+  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int rt = warp % p.NT, team = warp / p.NT;
+  const int grp = lane / p.L, j = lane % p.L;
+  const int d0 = j * E;
+  const int R = p.R, D = p.D;
+  float* ws = p.ws + ((size_t)(b * p.KV + h) * p.S + s) * (R * (D + 2));
+
+  // the combine kernel may be scheduled now; it waits for this grid to end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int pos0 = p.pos[b];
+  const int t_lo = s * p.P / p.S * p.ps;
+  const int t_hi = min((s + 1) * p.P / p.S * p.ps,
+                       min(pos0 + p.Lq, p.P * p.ps));
+  if (t_lo >= t_hi) {                 // past the live keys: empty partial
+    for (int i = tid; i < R * (D + 2); i += nthreads)
+      ws[i] = i < R ? NEG_INF : 0.f;
+    return;
+  }
+
+  // shared memory: each warp's q tile, then the token teams' rings
+  const int ring_bytes = STAGES * p.T * p.slot_bytes;
+  const int q_bytes = nthreads / 32 * RT * p.L * E * 4;
+  unsigned char* rings = smem + q_bytes;
+  // zero the rings once where slots have padding (past D, past a row's
+  // regions): it is read as code 0 with scale and zmin 0, which adds nothing
+  if (p.zero) {
+    for (int i = tid * 16; i < p.TW * ring_bytes; i += nthreads * 16)
+      *reinterpret_cast<uint4*>(rings + i) = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
+
+  // the warp's rows: q (0 past D and past R) and query positions
+  float qr[RT][E];
+  int qpos[RT];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    const int i = rt * RT + r;
+    qpos[r] = -1;                     // a row past R sees no key
+    const int lq = i / p.G, g = i - lq * p.G;
+    const size_t off = ((((size_t)b * p.Lq + lq) * p.KV + h) * p.G + g) * D;
+#pragma unroll
+    for (int e = 0; e < E; ++e) qr[r][e] = 0.f;
+    if (i >= R) continue;
+    qpos[r] = pos0 + lq;
+    if (p.q_vec && d0 + E <= D) {     // 16-byte loads of the lane's E
+      if (p.q_bf16) {
+        const uint4* src = reinterpret_cast<const uint4*>(
+            static_cast<const __nv_bfloat16*>(p.q) + off + d0);
+#pragma unroll
+        for (int c = 0; c < E / 8; ++c) {
+          const uint4 v = src[c];
+          const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            qr[r][8 * c + 2 * k] = __uint_as_float(w[k] << 16);
+            qr[r][8 * c + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+          }
+        }
+      } else {
+        const float4* src = reinterpret_cast<const float4*>(
+            static_cast<const float*>(p.q) + off + d0);
+#pragma unroll
+        for (int c = 0; c < E / 4; ++c) {
+          const float4 v = src[c];
+          qr[r][4 * c] = v.x, qr[r][4 * c + 1] = v.y, qr[r][4 * c + 2] = v.z,
+          qr[r][4 * c + 3] = v.w;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (d0 + e < D)
+          qr[r][e] = p.q_bf16
+              ? to_f32(static_cast<const __nv_bfloat16*>(p.q)[off + d0 + e])
+              : static_cast<const float*>(p.q)[off + d0 + e];
+    }
+  }
+  // the warp's q tile in shared memory, float4 (r, c) of lane j at
+  // (r*E/4 + c)*L + j, so that a group's lanes read 16 bytes apart
+  float4* qs = reinterpret_cast<float4*>(smem) + warp * RT * p.L * (E / 4);
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int c = 0; c < E / 4; ++c)
+        qs[(r * (E / 4) + c) * p.L + j] =
+            make_float4(qr[r][4 * c], qr[r][4 * c + 1], qr[r][4 * c + 2],
+                        qr[r][4 * c + 3]);
+  }
+  __syncwarp();
+  int gi[GROUPED ? E : 1];
+  if constexpr (QUANT) {
+#pragma unroll
+    for (int e = 0; e < (GROUPED ? E : 1); ++e) gi[e] = (d0 + e) / p.gs;
+  }
+
+  float m[RT], l[RT], acc[RT][E];
+#pragma unroll
+  for (int r = 0; r < RT; ++r) {
+    m[r] = NEG_INF, l[r] = 0.f;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[r][e] = 0.f;
+  }
+
+  // the team's chunks: chunk k holds keys t_lo + (k*TW + team)*T + [0, T),
+  // one a token group
+  unsigned char* ring = rings + team * ring_bytes;
+  const int step = p.TW * p.T;
+  const int nk = max(0, (t_hi - t_lo - team * p.T + step - 1) / step);
+  const int ur = p.row_bytes / p.wr, ug = QUANT ? p.grp_bytes / p.wg : 0;
+  const int uhalf = ur + 2 * ug;      // copies of K's (or V's) rows
+  const int upt = 2 * uhalf;          // copies a key
+  const int half = p.slot_bytes / 2;  // K's part of a slot, then V's
+  // a group's lanes copy the key it will use: lane j of row-team warp rt
+  // takes copies j + L*(rt + NT*i) (one, where a key has no more than L*NT
+  // copies): source, its stride and offset, destination, width
+  struct Copy {
+    const unsigned char* src;
+    int stride, off, dst, w;
+  };
+  auto decode = [&](int u) {
+    const bool v = u >= uhalf;
+    u -= v ? uhalf : 0;
+    Copy c;
+    if (u < ur) {
+      c = {v ? p.vd : p.kd, p.row_bytes, u * p.wr, u * p.wr, p.wr};
+    } else {
+      u -= ur;
+      const bool z = u >= ug;
+      u -= z ? ug : 0;
+      c = {v ? (z ? p.vz : p.vs) : (z ? p.kz : p.ks), p.grp_bytes, u * p.wg,
+           p.row_pad + (z ? p.grp_pad : 0) + u * p.wg, p.wg};
+    }
+    c.dst += v ? half : 0;
+    return c;
+  };
+  const int u_first = j + p.L * rt, u_step = p.L * p.NT;
+  const Copy c0 = decode(u_first < upt ? u_first : 0);
+
+  auto issue = [&](int k) {
+    const int t = t_lo + (k * p.TW + team) * p.T + grp;
+    if (k < nk && t < t_hi) {
+      // t / ps by a float reciprocal, corrected (exact below 2^24 keys)
+      int pg = __float2int_rz((float)t * p.inv_ps);
+      pg -= pg * p.ps > t;
+      pg += (pg + 1) * p.ps <= t;
+      const size_t row =
+          ((size_t)p.table[(size_t)b * p.P + pg] * p.ps + (t - pg * p.ps)) *
+              p.KV + h;
+      unsigned char* slot = ring + ((k % STAGES) * p.T + grp) * p.slot_bytes;
+      if (u_first < upt)
+        copy_bytes(slot + c0.dst, c0.src + row * c0.stride + c0.off, c0.w);
+      for (int u = u_first + u_step; u < upt; u += u_step) {
+        const Copy c = decode(u);
+        copy_bytes(slot + c.dst, c.src + row * c.stride + c.off, c.w);
+      }
+    }
+    cp_async_commit();                // one group a chunk, empty past nk
+  };
+
+  const int lane_off = d0 / E * lane_bytes<BITS, PT, E>();
+  auto compute = [&](int k) {
+    const int t = t_lo + (k * p.TW + team) * p.T + grp;  // the group's key
+    const unsigned char* slot =
+        ring + ((k % STAGES) * p.T + grp) * p.slot_bytes;
+    float x[E];
+    const float* kg = reinterpret_cast<const float*>(slot + p.row_pad);
+    load_row<BITS, PT, GROUPED, E>(slot + lane_off, kg, kg + p.grp_pad / 4,
+                                   gi, x);
+    float sc[RT];                     // scores, then probabilities
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {    // two chains a dot
+      float a = 0.f, c = 0.f;
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 qv = qs[(r * (E / 4) + e / 4) * p.L + j];
+        a = fmaf(qv.x, x[e], a);
+        c = fmaf(qv.y, x[e + 1], c);
+        a = fmaf(qv.z, x[e + 2], a);
+        c = fmaf(qv.w, x[e + 3], c);
+      }
+      sc[r] = a + c;
+    }
+    for (int o = 1; o < p.L; o <<= 1)  // the L lanes of the key
+#pragma unroll
+      for (int r = 0; r < RT; ++r) sc[r] += __shfl_xor_sync(FULL, sc[r], o);
+    float mx[RT];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {    // log2(e)-scaled scores
+      sc[r] = t < t_hi && t <= qpos[r] ? sc[r] * p.sm_scale : NEG_INF;
+      mx[r] = sc[r];
+    }
+    for (int o = p.L; o < 32; o <<= 1)  // the warp's keys
+#pragma unroll
+      for (int r = 0; r < RT; ++r)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], o));
+    bool grew = false;
+#pragma unroll
+    for (int r = 0; r < RT; ++r) grew |= mx[r] > m[r];
+    if (grew) {                       // uniform across the warp
+#pragma unroll
+      for (int r = 0; r < RT; ++r) {
+        const float mn = fmaxf(m[r], mx[r]);
+        const float c = exp2f(m[r] - mn);  // 1 where this row did not grow
+        l[r] *= c;
+#pragma unroll
+        for (int e = 0; e < E; ++e) acc[r][e] *= c;
+        m[r] = mn;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      sc[r] = sc[r] > NEG_INF ? exp2f(sc[r] - m[r]) : 0.f;
+      l[r] += sc[r];
+    }
+    // a key past the split's end has no copy in its slot (p = 0 there,
+    // but the slot may hold any bits)
+    if (t >= t_hi) return;
+    const unsigned char* vslot = slot + half;
+    const float* vg = reinterpret_cast<const float*>(vslot + p.row_pad);
+    load_row<BITS, PT, GROUPED, E>(vslot + lane_off, vg, vg + p.grp_pad / 4,
+                                   gi, x);
+#pragma unroll
+    for (int r = 0; r < RT; ++r)
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[r][e] = fmaf(sc[r], x[e], acc[r][e]);
+  };
+
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) issue(k);
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<STAGES - 2>();      // chunk k has landed (own copies)
+    team_sync(team, p.NT);            // ... everyone's; chunk k-1 is done
+    issue(k + STAGES - 1);            // into chunk k-1's slot
+    compute(k);
+  }
+  cp_async_wait<0>();
+
+  // the warp's T token groups, summed by shuffles (every lane of a group
+  // holds the group's l)
+  for (int o = p.L; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      l[r] += __shfl_xor_sync(FULL, l[r], o);
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        acc[r][e] += __shfl_xor_sync(FULL, acc[r][e], o);
+    }
+  }
+
+  // token teams' states through shared memory, combined in team order
+  __syncthreads();                    // every ring is done
+  float* part = reinterpret_cast<float*>(smem);
+  const int pw = R * (D + 2);         // one team's m[R], l[R], acc[R][D]
+  if (grp == 0) {
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      const int i = rt * RT + r;
+      if (i >= R) continue;
+      float* pt = part + team * pw;
+      if (j == 0) pt[i] = m[r], pt[R + i] = l[r];
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (d0 + e < D) pt[2 * R + i * D + d0 + e] = acc[r][e];
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < R * D; idx += nthreads) {
+    const int i = idx / D;
+    float mt = NEG_INF;
+    for (int w = 0; w < p.TW; ++w) mt = fmaxf(mt, part[w * pw + i]);
+    float a = 0.f, lt = 0.f;
+    for (int w = 0; w < p.TW; ++w) {
+      const float c = exp2f(part[w * pw + i] - mt);
+      a = fmaf(part[w * pw + 2 * R + idx], c, a);
+      lt = fmaf(part[w * pw + R + i], c, lt);
+    }
+    ws[2 * R + idx] = a;
+    if (idx - i * D == 0) ws[i] = mt, ws[R + i] = lt;
+  }
+}
+
+// out[b, lq, h, g, :] for every row i = lq*G + g of (b, h): the splits'
+// partials combined in split order.  Launched as a programmatic dependent
+// of the split kernel, so its blocks may start early; they wait for the
+// split kernel to finish before reading its partials.
+template <typename QT>
+__global__ void __launch_bounds__(256)
+paged_combine_kernel(const float* __restrict__ ws, QT* __restrict__ out,
+                     int S, int R, int D, int Lq, int KV, int G) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int bh = blockIdx.x, b = bh / KV, h = bh - b * KV;
+  const int sw = R * (D + 2);
+  const float* base = ws + (size_t)bh * S * sw;
+  constexpr int CB = 16;                 // splits whose loads go together
+  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
+    const int i = idx / D, d = idx - i * D;
+    // split s0 + c's m, l and acc, 0-weighted past S
+    float mm[CB], ll[CB], aa[CB];
+    auto load = [&](int s0) {
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        const float* w = base + (size_t)(s0 + c) * sw;
+        const bool in = s0 + c < S;
+        mm[c] = in ? w[i] : NEG_INF;
+        ll[c] = in ? w[R + i] : 0.f;
+        aa[c] = in ? w[2 * R + idx] : 0.f;
+      }
+    };
+    load(0);
+    float mt = NEG_INF;
+#pragma unroll
+    for (int c = 0; c < CB; ++c) mt = fmaxf(mt, mm[c]);
+    for (int s0 = CB; s0 < S; ++s0) mt = fmaxf(mt, base[(size_t)s0 * sw + i]);
+    float a = 0.f, lt = 0.f;
+    for (int s0 = 0; s0 < S; s0 += CB) {
+      if (s0) load(s0);
+#pragma unroll
+      for (int c = 0; c < CB; ++c) {
+        if (s0 + c >= S) break;
+        const float e = exp2f(mm[c] - mt);  // 0 for an empty split
+        a = fmaf(aa[c], e, a);
+        lt = fmaf(ll[c], e, lt);
+      }
+    }
+    const int lq = i / G, g = i - lq * G;
+    out[((((size_t)b * Lq + lq) * KV + h) * G + g) * D + d] =
+        from_f32<QT>(a / fmaxf(lt, 1e-30f));
+  }
 }
 
 template <typename QT>
-int dispatch(const Args& a, int bits, int page_bf16) {
-  switch (bits) {
-    case 0:
-      return page_bf16 ? launch<QT, __nv_bfloat16, 0>(a)
-                       : launch<QT, float, 0>(a);
-    case 1: return launch<QT, uint8_t, 1>(a);
-    case 2: return launch<QT, uint8_t, 2>(a);
-    case 4: return launch<QT, uint8_t, 4>(a);
-    case 8: return launch<QT, uint8_t, 8>(a);
-    default: return (int)cudaErrorInvalidValue;
+int launch_combine(const float* ws, void* out, int B, int S, int R, int D,
+                   int Lq, int KV, int G, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * KV);
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, paged_combine_kernel<QT>, ws,
+                                 static_cast<QT*>(out), S, R, D, Lq, KV, G);
+}
+
+// the widest copy (16, 8, 4, 2 or 1 bytes) that divides n and keeps every
+// pointer aligned
+int copy_width(int n, std::initializer_list<const void*> ptrs) {
+  int w = 16;
+  for (const void* q : ptrs)
+    while (w > 1 && ((uintptr_t)q % w || n % w)) w >>= 1;
+  while (w > 1 && n % w) w >>= 1;
+  return w;
+}
+
+int pad16(int n) { return (n + 15) / 16 * 16; }
+
+template <typename PT, int BITS, bool GROUPED, int E>
+int launch_split(Params p, int B, cudaStream_t stream) {
+  const int dp = p.L * E;                     // D padded to the lanes
+  p.row_pad = pad16(dp * lane_bytes<BITS, PT, E>() / E);
+  p.wr = copy_width(p.row_bytes, {p.kd, p.vd});
+  if (BITS) {
+    const int ng = p.D / p.gs, ngp = (dp + p.gs - 1) / p.gs;
+    p.grp_bytes = 4 * ng;
+    p.grp_pad = pad16(4 * (ngp > ng ? ngp : ng));
+    p.wg = copy_width(p.grp_bytes, {p.ks, p.kz, p.vs, p.vz});
+  } else {
+    p.grp_bytes = p.grp_pad = 0, p.wg = 1;
   }
+  // a slot's stride modulo 128 bytes puts the T groups' reads of a row in
+  // different banks (a group reads L * lane_bytes contiguous bytes)
+  int shift = (p.L * lane_bytes<BITS, PT, E>() + 31) / 32 * 32;
+  if (shift >= 128) shift = 0;
+  p.slot_bytes = 2 * (p.row_pad + 2 * p.grp_pad);
+  while (p.slot_bytes % 128 != shift) p.slot_bytes += 32;
+  p.zero = p.row_pad > p.row_bytes || p.grp_pad > p.grp_bytes;
+  const size_t ring = (size_t)p.NT * p.TW * RT * p.L * E * sizeof(float)
+                      + (size_t)p.TW * STAGES * p.T * p.slot_bytes;
+  const size_t part = (size_t)p.TW * p.R * (p.D + 2) * sizeof(float);
+  const size_t smem = ring > part ? ring : part;
+  auto kernel = paged_split_kernel<PT, BITS, GROUPED, E>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<dim3(p.S, p.KV, B), 32 * p.NT * p.TW, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// E = 8 elements a lane up to D 256, else 16; a lane's E elements lie in
+// one region when gs is a multiple of E
+template <typename PT, int BITS>
+int launch_format(const Params& p, int B, cudaStream_t st) {
+  if (p.D > 256) {
+    if (BITS == 0 || p.gs % 16 == 0)
+      return launch_split<PT, BITS, false, 16>(p, B, st);
+    return launch_split<PT, BITS, BITS != 0, 16>(p, B, st);
+  }
+  if (BITS == 0 || p.gs % 8 == 0)
+    return launch_split<PT, BITS, false, 8>(p, B, st);
+  return launch_split<PT, BITS, BITS != 0, 8>(p, B, st);
 }
 
 }  // namespace
@@ -191,18 +610,57 @@ int dispatch(const Args& a, int bits, int page_bf16) {
 
 // C interface, bound with ctypes.  bits 0 = fp pages (page_bf16 picks their
 // dtype), else wire pages at 8/4/2/1 bits; for fp pages the scale/zmin
-// pointers are unused.  smem is the dynamic shared memory the caller
-// computed.  Returns cudaGetLastError() after the launch (0 = launched).
+// pointers are unused.  ws is f32 scratch of B*KV*splits*R*(D+2) floats; L,
+// T, nt, tw are the block geometry the wrapper computed (geometry()).
+// Returns the first CUDA error of the two launches (0 = both launched).
 extern "C" int repro_paged_attention(
     const void* q, const void* kd, const void* ks, const void* kz,
     const void* vd, const void* vs, const void* vz, const void* table,
-    const void* pos, void* out, int B, int Lq, int KV, int G, int D, int ps,
-    int P, int bits, int gs, int q_bf16, int page_bf16, float sm_scale,
-    long long smem, void* stream) {
+    const void* pos, void* ws, void* out, int B, int Lq, int KV, int G,
+    int D, int ps, int P, int bits, int gs, int splits, int L, int T, int nt,
+    int tw, int q_bf16, int page_bf16, float sm_scale, void* stream) {
   using namespace repro_torch;
-  const Args a{q,  kd, ks, kz, vd, vs, vz, table, pos, out,
-               B,  Lq, KV, G,  D,  ps, P,  gs,    sm_scale,
-               (size_t)smem, static_cast<cudaStream_t>(stream)};
-  if (q_bf16) return dispatch<__nv_bfloat16>(a, bits, page_bf16);
-  return dispatch<float>(a, bits, page_bf16);
+  Params p{};
+  p.q = q;
+  p.kd = static_cast<const unsigned char*>(kd);
+  p.vd = static_cast<const unsigned char*>(vd);
+  p.ks = static_cast<const unsigned char*>(ks);
+  p.kz = static_cast<const unsigned char*>(kz);
+  p.vs = static_cast<const unsigned char*>(vs);
+  p.vz = static_cast<const unsigned char*>(vz);
+  p.table = static_cast<const int*>(table);
+  p.pos = static_cast<const int*>(pos);
+  p.ws = static_cast<float*>(ws);
+  p.Lq = Lq, p.KV = KV, p.G = G, p.D = D, p.ps = ps, p.P = P, p.S = splits;
+  p.gs = gs, p.R = Lq * G;
+  p.L = L, p.T = T, p.NT = nt, p.TW = tw;
+  // scores in base 2: exp2 of log2(e)-scaled scores
+  p.q_bf16 = q_bf16, p.sm_scale = sm_scale * 1.4426950408889634f;
+  p.inv_ps = 1.f / ps;
+  const int qb = q_bf16 ? 2 : 4;
+  p.q_vec = (uintptr_t)q % 16 == 0 && D * qb % 16 == 0;
+  const int e = D > 256 ? 16 : 8;
+  if (L * e < D || 32 % L || T * L != 32 || nt * tw > MAX_WARPS)
+    return (int)cudaErrorInvalidValue;
+  p.row_bytes = bits ? D * bits / 8 : D * (page_bf16 ? 2 : 4);
+  auto st = static_cast<cudaStream_t>(stream);
+  int err;
+  switch (bits) {
+    case 0:
+      err = page_bf16 ? launch_format<__nv_bfloat16, 0>(p, B, st)
+                      : launch_format<float, 0>(p, B, st);
+      break;
+    case 1: err = launch_format<uint8_t, 1>(p, B, st); break;
+    case 2: err = launch_format<uint8_t, 2>(p, B, st); break;
+    case 4: err = launch_format<uint8_t, 4>(p, B, st); break;
+    case 8: err = launch_format<uint8_t, 8>(p, B, st); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (err) return err;
+  err = q_bf16 ? launch_combine<__nv_bfloat16>(p.ws, out, B, splits, p.R, D,
+                                               Lq, KV, G, st)
+               : launch_combine<float>(p.ws, out, B, splits, p.R, D, Lq, KV,
+                                       G, st);
+  if (err) return err;
+  return (int)cudaGetLastError();
 }

@@ -7,8 +7,12 @@ pool, fp pages or LQ wire pages dequantized in registers.  q is
 first query row, and query i sees keys at positions ``<= pos + i``.
 
 ``paged_attention`` sends a CPU tensor to :func:`plain` and a CUDA tensor
-to the kernel; a CUDA tensor the kernel does not take raises, and nothing
-falls back.  ``paged_attention.launches`` counts kernel launches.
+to the kernels: the page walk of each (slot, kv head) cut into
+:func:`plan`'s splits, one block each, then a kernel that combines the
+splits' partial softmax states in split order (no atomics: every call
+gives the same bytes).  A CUDA tensor the kernels do not take raises
+(:func:`check_rows`), and nothing falls back.  ``paged_attention.launches``
+counts wrapper calls that launched (two kernels each).
 
 ``dequant="auto|affine|lut"`` is kept and validated as in the JAX package
 (``lut`` at more than 4 bits raises ``ValueError``).  Both dequant forms
@@ -24,9 +28,18 @@ import torch
 
 from ..core import kvwire
 from . import build, ref
+from .splitk import TARGET_BLOCKS
 
 DEQUANT_MODES = ("auto", "affine", "lut")
-_SMEM_LIMIT = 48 * 1024      # dynamic shared memory without an opt-in
+# as csrc/paged_attention.cu: a warp holds ROWS_PER_WARP query rows and a
+# lane 8 elements of a row (16 past D 256); a block has at most MAX_WARPS
+# warps, MAX_TOKEN_TEAMS of them taking different chunks of keys
+ROWS_PER_WARP = 4
+MAX_WARPS = 8
+MAX_TOKEN_TEAMS = 4
+MAX_ROWS = ROWS_PER_WARP * MAX_WARPS
+MAX_D = 512
+SPLIT_TOKENS = 256           # keys a split walks at most, where P allows
 _DTYPES = (torch.float32, torch.bfloat16)
 F32_U = 2.0 ** -24               # unit roundoff of float32
 BF16_ULP = 2.0 ** -7             # two bf16 roundings may differ by this
@@ -74,7 +87,24 @@ def error_bound(q, k_pages, v_pages, page_table, pos, out_plain):
     combination of V rows: a score error delta moves it by at most
     2*delta*max|v|, and the online softmax re-associates a sum over n live
     keys (plus exp and one division), at most (n+8)*u*max|v|.  A bf16
-    output adds 2^-7 of the value (one rounding on each side)."""
+    output adds 2^-7 of the value (one rounding on each side).
+
+    The CUDA kernels split that walk, and it still fits.  A key's p*v
+    passes through the adds of its lane (one per chunk its token group
+    takes), a rescale when the warp's running max grows, the log2(T)
+    shuffle adds of the warp's token groups, the combine of the block's
+    token teams, the S-term combine of the splits, and the division.  Adds
+    of an exact zero (a group, team or split that saw no key) and rescales
+    by exactly 1 (the part that holds the max) do not round.  plan() and
+    geometry() keep that nest no deeper than the TPU kernel's page walk
+    (ps in-page adds, then a rescale and an add for each later page), or
+    else within n + 8, for the blocks the page walk took (its q, one page
+    and the scores in 48 KB of shared memory): tests/test_torch_paged.py
+    counts both over a sweep of shapes.  Past those blocks a chunk may
+    hold one key (D 512, 32 rows), and the nest is the page walk's at
+    page size 1, about 2n.  So (n+8)*u stands.  Each score is still one
+    dot of D products, which the kernels then scale by log2(e) for exp2:
+    two more roundings of a score, inside delta's 2D+2."""
     d = q.shape[-1]
     kk = kvwire.gather_pages(k_pages, page_table.long())
     vv = kvwire.gather_pages(v_pages, page_table.long())
@@ -96,34 +126,80 @@ def error_bound(q, k_pages, v_pages, page_table, pos, out_plain):
 
 
 @functools.cache
+def plan(b: int, kvh: int, rows: int, n_tbl: int, page_size: int) -> int:
+    """The number of splits of each slot's page walk, from shapes alone
+    (no tensor value is read, so the launch can be captured in a graph).
+
+    Split ``s`` covers table entries ``splitk.split_rows(n_tbl, splits)[s]``.
+    The grid is ``b * kvh * splits`` blocks; ``splits`` is the most whose
+    splits hold ``n_tbl // need`` entries or more, where ``need`` is the
+    least count giving TARGET_BLOCKS blocks, so that the grid reaches
+    TARGET_BLOCKS where ``b * kvh * n_tbl`` allows it, never with more
+    splits than table entries, and no split walks more than SPLIT_TOKENS
+    keys when the table allows more splits.  ``rows`` (Lq*G) is checked
+    against the kernel's limit."""
+    check_rows(rows)
+    need = -(-TARGET_BLOCKS // (b * kvh))
+    splits = n_tbl // max(1, n_tbl // need)
+    return min(n_tbl, max(splits, -(-n_tbl * page_size // SPLIT_TOKENS)))
+
+
+def check_rows(rows: int, d: int | None = None) -> None:
+    """Raise for what the kernel does not take: more than MAX_ROWS query
+    rows (Lq*G) per kv head, or a head_dim above MAX_D."""
+    if rows > MAX_ROWS:
+        raise ValueError(f"{rows} query rows (Lq*G) per kv head, above the "
+                         f"kernel's {MAX_ROWS}")
+    if d is not None and d > MAX_D:
+        raise ValueError(f"head_dim {d} above the kernel's {MAX_D}")
+
+
+@functools.cache
+def geometry(rows: int, d: int, page_size: int, n_tbl: int,
+             splits: int) -> tuple[int, int, int, int]:
+    """The split kernel's block, as ``csrc/paged_attention.cu`` takes it:
+    ``(L, T, nt, tw)``.  A key's row is cut across L lanes of 8 elements
+    (16 past D 256; L the least power of two that covers D), so a warp
+    takes a chunk of T = 32/L keys at once, one a token group;
+    nt = ceil(rows/4) warps hold the rows (a row team) and tw row teams take
+    interleaved chunks of a split, as many as its longest split fills, at
+    most MAX_TOKEN_TEAMS and MAX_WARPS warps in all."""
+    check_rows(rows, d)
+    elems = 8 if d <= 256 else 16
+    lanes = 1 << (-(-d // elems) - 1).bit_length()
+    t = 32 // lanes
+    nt = -(-rows // ROWS_PER_WARP)
+    keys = -(-n_tbl // splits) * page_size
+    tw = max(1, min(MAX_TOKEN_TEAMS, MAX_WARPS // nt, -(-keys // t)))
+    return lanes, t, nt, tw
+
+
+@functools.cache
 def _entry():
     fn = build.library("paged_attention").repro_paged_attention
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_longlong, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 16 \
+        + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def smem_bytes(rows: int, d: int, page_size: int) -> int:
-    """Dynamic shared memory of one block: q and acc (rows x D), the K page
-    (padded rows) and the V page, scores, and three per-row scalars."""
-    return 4 * (2 * rows * d + page_size * (2 * d + 1) + rows * page_size
-                + 3 * rows)
+def _int32(t, device):
+    """``t`` as a contiguous int32 tensor on ``device``, converted only if
+    it is not one already."""
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int32 \
+            or t.device != device or not t.is_contiguous():
+        t = torch.as_tensor(t, device=device).to(torch.int32).contiguous()
+    return t
 
 
-def paged_attention(q, k_pages, v_pages, page_table, pos, *,
-                    dequant: str = "auto"):
-    """Fused flash-decode over a paged pool -> (B, Lq, KV, G, D) in q's dtype.
-
-    ``k_pages``/``v_pages`` are one pool leaf each: fp (n_pages, ps, KV, D)
-    tensors or wire dicts with (n_pages, ps, KV, D/cpb) packed codes;
-    page_table (B, P) int32 physical page ids in table order.
-    """
+def launch_args(q, k_pages, v_pages, page_table, pos, splits=None):
+    """Everything the CUDA launch takes, from shapes, dtypes and pointers
+    alone: ``(args, out, ws)``, ``args`` the C entry's arguments before
+    the stream.  Reads no tensor value."""
     b, lq, kvh, gq, d = q.shape
     bits = _bits(k_pages, d)
-    dequant_path(bits, dequant)
-    if q.device.type == "cpu":
-        return plain(q, k_pages, v_pages, page_table, pos, dequant=dequant)
+    rows = lq * gq
+    check_rows(rows, d)
     if q.dtype not in _DTYPES:
         raise TypeError(f"paged_attention kernel takes f32/bf16 q, "
                         f"got {q.dtype}")
@@ -144,26 +220,50 @@ def paged_attention(q, k_pages, v_pages, page_table, pos, *,
     page_size = page_shape[1]
     if page_shape[2] != kvh:
         raise ValueError(f"pages hold {page_shape[2]} kv heads, q has {kvh}")
-    table = page_table.to(device=q.device, dtype=torch.int32).contiguous()
-    posb = torch.as_tensor(pos, device=q.device).to(torch.int32) \
-        .expand(b).contiguous()
+    table = _int32(page_table, q.device)
+    posb = _int32(pos, q.device)
+    if posb.shape != (b,):
+        posb = posb.expand(b).contiguous()
     if table.shape[0] != b:
         raise ValueError(f"page table has {table.shape[0]} rows for {b} slots")
-    smem = smem_bytes(lq * gq, d, page_size)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"{lq * gq} query rows x head_dim {d} need {smem} B "
-                         f"of shared memory, above the kernel's "
-                         f"{_SMEM_LIMIT} B")
+    n_tbl = table.shape[1]
+    if splits is None:
+        splits = plan(b, kvh, rows, n_tbl, page_size)
+    elif not 1 <= splits <= n_tbl:
+        raise ValueError(f"splits={splits} outside [1, {n_tbl}] table "
+                         f"entries")
+    lanes, t, nt, tw = geometry(rows, d, page_size, n_tbl, splits)
     q = q.contiguous()
     out = torch.empty_like(q)
-    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    # each split's f32 (m[R], l[R], acc[R, D]); the combine kernel reads
+    # them in split order
+    ws = torch.empty(b * kvh * splits * rows * (d + 2), dtype=torch.float32,
+                     device=q.device)
+    ptr = lambda x: None if x is None else x.data_ptr()   # noqa: E731
+    args = (ptr(q), ptr(kd), ptr(ks), ptr(kz), ptr(vd), ptr(vs), ptr(vz),
+            ptr(table), ptr(posb), ptr(ws), ptr(out), b, lq, kvh, gq, d,
+            page_size, n_tbl, bits or 0, gs, splits, lanes, t, nt, tw,
+            int(q.dtype == torch.bfloat16),
+            int(bits is None and kd.dtype == torch.bfloat16), d ** -0.5)
+    return args, out, ws
+
+
+def paged_attention(q, k_pages, v_pages, page_table, pos, *,
+                    dequant: str = "auto", splits: int | None = None):
+    """Fused flash-decode over a paged pool -> (B, Lq, KV, G, D) in q's dtype.
+
+    ``k_pages``/``v_pages`` are one pool leaf each: fp (n_pages, ps, KV, D)
+    tensors or wire dicts with (n_pages, ps, KV, D/cpb) packed codes;
+    page_table (B, P) int32 physical page ids in table order.  ``splits``
+    forces the split count (1..P) in place of :func:`plan`'s; it changes
+    only the order of the sums.
+    """
+    dequant_path(_bits(k_pages, q.shape[-1]), dequant)
+    if q.device.type == "cpu":
+        return plain(q, k_pages, v_pages, page_table, pos, dequant=dequant)
+    args, out, _ = launch_args(q, k_pages, v_pages, page_table, pos, splits)
     with torch.cuda.device(q.device):
-        status = _entry()(
-            ptr(q), ptr(kd), ptr(ks), ptr(kz), ptr(vd), ptr(vs), ptr(vz),
-            ptr(table), ptr(posb), ptr(out), b, lq, kvh, gq, d, page_size,
-            table.shape[1], bits or 0, gs, int(q.dtype == torch.bfloat16),
-            int(bits is None and kd.dtype == torch.bfloat16), d ** -0.5,
-            smem, torch.cuda.current_stream().cuda_stream)
+        status = _entry()(*args, torch.cuda.current_stream().cuda_stream)
     build.check(status, "paged_attention")
     paged_attention.launches += 1
     return out

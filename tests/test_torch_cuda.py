@@ -11,9 +11,10 @@ runs on a machine with the card and without JAX:
 Tolerances: quant_matmul is held to ``quant_matmul.error_bound`` (f32
 summation order, bf16 output rounding), as chip_smoke.py holds it;
 paged attention re-associates an online softmax over at most 64 keys of
-unit-scale values, well inside 1e-5.  act_quant must give the plain
-version's bytes exactly; lut_matmul is held to ``lut_matmul.error_bound``
-(f32 summation order).  TF32 is off.
+unit-scale values, well inside 1e-5, and its serve-path, long-context and
+odd-width cases are held to ``paged_attention.error_bound``.  act_quant
+must give the plain version's bytes exactly; lut_matmul is held to
+``lut_matmul.error_bound`` (f32 summation order).  TF32 is off.
 """
 import numpy as np
 import pytest
@@ -163,6 +164,131 @@ def test_paged_attention_kernel_matches_plain(bits, lq):
     for dq in ("affine", "lut") if bits is not None and bits <= 4 else ():
         assert torch.equal(pa.paged_attention(q, k, v, table, pos,
                                               dequant=dq), got)
+
+
+def _decode_case(dev, lq, pos, pps, bits=4, ps=16, kvh=8, gq=4, d=64):
+    """The serve path's geometry (llama3.2-1b heads, page 16, 4-bit pages
+    of group 16, bf16 q) with slots at ``pos`` over ``pps`` table entries;
+    entries past a slot's live pages point at scratch page 0."""
+    b = len(pos)
+    n_pages = b * pps + 1
+    kf = RNG.normal(size=(n_pages, ps, kvh, d)).astype(np.float32)
+    vf = RNG.normal(size=kf.shape).astype(np.float32)
+    kf[0], vf[0] = 1e4, -1e4
+    q = _t(RNG.normal(size=(b, lq, kvh, gq, d)).astype(np.float32),
+           dev).to(torch.bfloat16)
+    table = np.zeros((b, pps), np.int32)
+    for i, p in enumerate(pos):
+        live = (p + lq - 1) // ps + 1
+        table[i, :live] = 1 + i * pps + np.arange(live)
+    k, v = _t(kf, dev), _t(vf, dev)
+    if bits is not None:
+        k, v = kvwire.quantize_kv(k, bits, 16), kvwire.quantize_kv(v, bits, 16)
+    return q, k, v, _t(table, dev), _t(np.array(pos, np.int32), dev)
+
+
+def _within_bound(got, q, k, v, table, pos):
+    want = pa.plain(q, k, v, table.long(), pos.long())
+    tol = pa.error_bound(q, k, v, table, pos, want)
+    assert not got.isnan().any()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq", [1, 3])
+@pytest.mark.parametrize("keys", [160, 4096])
+def test_paged_attention_kernel_at_serve_and_long_context(keys, lq):
+    """4 slots near 160 keys (the serve shape) and near 4096, under the
+    plan's splits and under one split."""
+    dev = _card()
+    pos = [keys - lq, keys - 7 - lq, keys - 16, 37]
+    case = _decode_case(dev, lq, pos, keys // 16)
+    for splits in (None, 1):
+        _within_bound(pa.paged_attention(*case, splits=splits), *case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [None, 8, 4, 2, 1])
+def test_paged_attention_every_split_count(bits):
+    """Every split count from 1 to P gives the plain version's result, with
+    slots whose table entries past their live pages point at scratch
+    (splits that hold only masked or scratch pages)."""
+    dev = _card()
+    for lq in (1, 3):
+        q, k, v, table, pos = _pages(bits, dev, lq=lq)
+        want = pa.plain(q, k, v, table.long(), pos.long())
+        for splits in range(1, table.shape[1] + 1):
+            got = pa.paged_attention(q, k, v, table, pos, splits=splits)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [None, 1, 2, 11])
+def test_paged_attention_is_deterministic_and_replays(splits):
+    """Two calls give the same bytes (the splits are combined in a fixed
+    order), a CUDA graph replay gives the eager call's, and each call adds
+    one to the launch count."""
+    dev = _card()
+    case = _decode_case(dev, 1, [159, 37, 0, 150], 11)
+    before = pa.paged_attention.launches
+    got = pa.paged_attention(*case, splits=splits)
+    assert torch.equal(got, pa.paged_attention(*case, splits=splits))
+    assert pa.paged_attention.launches == before + 2
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = pa.paged_attention(*case, splits=splits)
+    replayed.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, replayed)
+    _within_bound(got, *case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,gs,ps,gq,lq,bits", [
+    (48, 24, 4, 2, 1, 8),       # regions that straddle a lane's elements
+    (32, 8, 5, 3, 2, 4),        # several regions a lane, odd page size
+    (16, 16, 1, 2, 3, 1),       # 1-bit rows of 2 bytes, page size 1
+    (512, 128, 2, 1, 1, None),  # 16 elements a lane
+    (64, 16, 16, 8, 4, 2),      # 32 query rows: 8 row warps
+])
+def test_paged_attention_odd_shapes(d, gs, ps, gq, lq, bits):
+    """Widths off the serve path, within error_bound, once with pages that
+    start one element past an aligned address (narrower copies)."""
+    dev = _card()
+    n_pages, kvh, pps, b = 7, 2, 3, 2
+    kf = RNG.normal(size=(n_pages, ps, kvh, d)).astype(np.float32)
+    vf = RNG.normal(size=kf.shape).astype(np.float32)
+    q = _t(RNG.normal(size=(b, lq, kvh, gq, d)).astype(np.float32), dev)
+    table = _t(np.array([[1, 2, 0], [3, 4, 5]], np.int32), dev)
+    pos = _t(np.array([ps + 1 - lq + 1, pps * ps - lq], np.int32), dev)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        return flat[1:].view(x.shape).copy_(x)
+    k, v = _t(kf, dev), _t(vf, dev)
+    if bits is not None:
+        k, v = kvwire.quantize_kv(k, bits, gs), kvwire.quantize_kv(v, bits, gs)
+    for move in (False, True):
+        if move:
+            k, v = ((({n: shifted(t) for n, t in x.items()}
+                      if isinstance(x, dict) else shifted(x)) for x in (k, v)))
+        _within_bound(pa.paged_attention(q, k, v, table, pos), q, k, v,
+                      table, pos)
+
+
+@pytest.mark.cuda
+def test_paged_attention_refuses_what_it_does_not_take():
+    dev = _card()
+    q, k, v, table, pos = _decode_case(dev, 1, [40, 20], 4)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q.to(torch.float16), k, v, table, pos)
+    with pytest.raises(ValueError, match="splits"):
+        pa.paged_attention(q, k, v, table, pos, splits=5)
+    with pytest.raises(ValueError, match="rows"):
+        pa.paged_attention(q.repeat(1, 9, 1, 1, 1), k, v, table, pos)
+    with pytest.raises(ValueError, match="kv heads"):
+        pa.paged_attention(q[:, :, :4], k, v, table, pos)
 
 
 @pytest.mark.cuda
