@@ -10,9 +10,10 @@ Phases, each printed as one JSON line:
   kernels  each CUDA kernel against its plain PyTorch version on the card,
            at the main paths' shapes: quant_matmul, paged_attention and
            lut_matmul within computed error bounds, act_quant byte for byte;
-           quant_matmul, paged_attention (also at 4096 keys a slot and with
-           splits that hold no live key) and lut_matmul also give the same
-           bytes twice and from a CUDA graph replay
+           quant_matmul, paged_attention (also at 4096 keys a slot, with
+           splits that hold no live key and with two row tiles) and
+           lut_matmul also give the same bytes twice and from a CUDA graph
+           replay
   serve    llama3.2-1b at its published widths (random weights from a
            seed) through the port's Server, 4-bit paged KV, fused
            attention, bf16, under three schemes: lq4w (weight-only,
@@ -38,6 +39,7 @@ It imports nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -144,10 +146,10 @@ def ptxas_report(log: str) -> dict:
     for chunk in log.split("Compiling entry function")[1:]:
         fn = re.search(r"'(\w+)'", chunk).group(1)
         name = re.search(r"\d+([a-z_]+_kernel)", fn)
-        args = re.findall(r"Li(\d+)E", fn)
+        args = re.findall(r"L[ib](\d+)E", fn)      # int and bool args
         if "bfloat16" in fn:
             args.append("bf16")
-        elif re.search(r"kernelI(?:Li\d+E)*fE", fn):
+        elif re.search(r"kernelI(?:L[ib]\d+E)*f[EL]", fn):
             args.append("f32")
         label = f"{name.group(1) if name else fn}<{','.join(args)}>"
 
@@ -298,12 +300,27 @@ def paged_cases(lq):
              {"pos": [0, 37], "pps": 64}, 64)]
 
 
+@contextlib.contextmanager
+def forced_splits(splits):
+    """Run the paged-attention kernels under ``splits`` splits (None: the
+    plan's): ``launch_args`` looks ``plan`` up at each call."""
+    from repro_torch.kernels import paged_attention as pa
+    plan = pa.plan
+    if splits is not None:
+        pa.plan = lambda *shape: splits
+    try:
+        yield
+    finally:
+        pa.plan = plan
+
+
 def check_paged_attention(dev) -> dict:
     """The kernels within ``paged_attention.error_bound`` of the plain
     version: bits None/8/4/2/1 x f32/bf16 q x Lq 1/3 at the serve shape,
-    then the long-context and empty-split cases at 4 bits, bf16, Lq 1/3.
-    Every case is called twice and replayed from a CUDA graph (same
-    bytes), and every dequant selector the case takes gives the same
+    then the long-context and empty-split cases at 4 bits, bf16, Lq 1/3,
+    and a speculative verify of Lq 9 (36 query rows a kv head: two row
+    tiles).  Every case is called twice and replayed from a CUDA graph
+    (same bytes), and every dequant selector the case takes gives the same
     bytes; dequant='lut' at 8 bits must raise."""
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
@@ -314,12 +331,13 @@ def check_paged_attention(dev) -> dict:
     todo += [(f"{name} Lq={lq}", bits, dtype, lq, kw, splits)
              for lq in (1, 3)
              for name, bits, dtype, kw, splits in paged_cases(lq)]
+    todo.append(("row_tiles Lq=9", 4, torch.bfloat16, 9, {}, None))
     for where, bits, dtype, lq, kw, splits in todo:
         q, kp, vp, table, pos = paged_case(dev, bits, dtype, lq, gen, **kw)
 
         def call(dq="auto"):
-            return pa.paged_attention(q, kp, vp, table, pos, dequant=dq,
-                                      splits=splits)
+            with forced_splits(splits):
+                return pa.paged_attention(q, kp, vp, table, pos, dequant=dq)
         got = same_bytes_thrice(call, f"paged_attention {where}")
         for dq in ("affine",) if bits == 8 else ("affine", "lut"):
             if not torch.equal(got, call(dq)):
@@ -989,7 +1007,9 @@ def time_paged_attention(dev) -> dict:
     from CUDA-graph replays; ``eager_ms`` and ``library_eager_ms`` the same
     calls in an eager loop, which host work paces once the kernel is
     short; ``kernel_us`` splits a call between the split kernel and the
-    combine; ``plan`` is the split count with the block geometry."""
+    combine; ``plan`` is the split count with the block geometry.
+    ``verify_lq9`` is a speculative verify at the serve shape: Lq 9, 36
+    query rows a kv head, two row tiles."""
     from repro_torch.kernels import paged_attention as pa
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     out = timed_paged(dev, gen, [159, 158, 152, 160], MAX_CONTEXT // PAGE)
@@ -999,17 +1019,20 @@ def time_paged_attention(dev) -> dict:
     long = timed_paged(dev, gen, [LONG_CONTEXT - 1] * 4,
                        LONG_CONTEXT // PAGE)
     long.pop("inputs")
-    return {**out, "long_context": long,
+    verify = timed_paged(dev, gen, [151, 150, 144, 152], MAX_CONTEXT // PAGE,
+                         lq=9)
+    verify.pop("inputs")
+    return {**out, "long_context": long, "verify_lq9": verify,
             "library": "scaled_dot_product_attention on the gathered, "
                        "dequantized bf16 cache"}
 
 
-def timed_paged(dev, gen, pos, pps) -> dict:
+def timed_paged(dev, gen, pos, pps, lq=1) -> dict:
     """The timing fields of one paged-attention shape (see
     time_paged_attention), with the bound of these inputs."""
     from repro_torch.core import kvwire
     from repro_torch.kernels import paged_attention as pa
-    q, kp, vp, table, posb = paged_case(dev, KV_BITS, torch.bfloat16, 1,
+    q, kp, vp, table, posb = paged_case(dev, KV_BITS, torch.bfloat16, lq,
                                         gen, pos=pos, pps=pps)
     b, lq, kvh, g, d = q.shape
     for i in range(b):                    # distinct pages, no scratch
@@ -1022,10 +1045,11 @@ def timed_paged(dev, gen, pos, pps) -> dict:
     vv = kvwire.dequantize_kv(kvwire.gather_pages(vp, tbl), d,
                               torch.bfloat16)
     s = kk.shape[1]
-    qs = q.reshape(b, lq, kvh * g, d).transpose(1, 2)            # (B,H,1,D)
+    qs = q.reshape(b, lq, kvh * g, d).transpose(1, 2)           # (B,H,Lq,D)
     ks, vs = kk.transpose(1, 2), vv.transpose(1, 2)              # (B,KV,S,D)
-    mask = (torch.arange(s, device=dev)[None, :]
-            <= posb.long()[:, None])[:, None, None, :]
+    qpos = posb.long()[:, None] + torch.arange(lq, device=dev)   # (B, Lq)
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]                        # (B,1,Lq,S)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def kernel():
@@ -1037,17 +1061,19 @@ def timed_paged(dev, gen, pos, pps) -> dict:
     per_tok = kvh * 2 * (d * KV_BITS // 8 + 8 * (d // KV_GROUP))
     nbytes = sum(ntok) * per_tok + 2 * q.numel() * q.element_size() \
         + table.numel() * 4 + posb.numel() * 4
-    flops = sum(4 * n * kvh * g * d for n in ntok)
+    # query row i of a slot at pos sees pos + i + 1 keys
+    flops = sum(4 * (p + i + 1) * kvh * g * d for p in pos for i in range(lq))
     b_ms, b_by = bound(nbytes, flops)
     splits = pa.plan(b, kvh, lq * g, pps, PAGE)
+    geom = pa.geometry(lq * g, d, PAGE, pps, splits)
     return {"ms": graph_time(kernel), "eager_ms": cuda_time(kernel, 500),
             "library_ms": graph_time(library),
             "library_eager_ms": cuda_time(library, 500),
             "bound_ms": b_ms, "bound_by": b_by,
             "kernel_us": kernel_split_us(kernel),
-            "plan": {"splits": splits, "blocks": b * kvh * splits,
-                     "lanes_tokens_rowteams_tokenteams":
-                     list(pa.geometry(lq * g, d, PAGE, pps, splits))},
+            "plan": {"splits": splits, "blocks": b * kvh * splits * geom[-1],
+                     "elems_lanes_tokens_rowteams_tokenteams_tiles":
+                     list(geom)},
             "shape": f"q {tuple(q.shape)} bf16, {KV_BITS}-bit pages, page "
                      f"{PAGE}, {pps} table entries, tokens per slot {ntok}",
             "inputs": (q, kp, vp, table, posb)}

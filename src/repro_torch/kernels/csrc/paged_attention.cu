@@ -22,47 +22,57 @@
 // the walk is split and the state of each split goes through device memory
 // (flash-decoding), in two kernels:
 //
-// paged_split_kernel, one block per (slot, kv head, split).  Split s of S
-// covers table entries [s*P/S, (s+1)*P/S) (kernels/splitk.py split_rows; S
-// from plan() in kernels/paged_attention.py, from shapes alone) and walks
-// only the keys below pos[b] + Lq: a split past the slot's live keys writes
-// the empty partial (m = NEG_INF, l = 0, acc = 0) and returns, and the keys
-// after pos in the last live page are never read.  The block reads pos and
-// the table itself, so the launch needs no value from the device.
-//   - All Lq*G query rows of the head are in the block, so each page is
-//     read once per kv head: a warp holds RT = 4 rows (q in a shared-memory
-//     tile, the f32 accumulator in registers), and ceil(R/4) warps (a "row
-//     team") use the same staged keys.
+// paged_split_kernel, one block per (slot, kv head, split, row tile).
+// Split s of S covers table entries [s*P/S, (s+1)*P/S) (kernels/splitk.py
+// split_rows; S from plan() in kernels/paged_attention.py, from shapes
+// alone) and walks only the keys below pos[b] + Lq: a split past the slot's
+// live keys writes the empty partial (m = NEG_INF, l = 0, acc = 0) and
+// returns, and the keys after pos in the last live page are never read.
+// The block reads pos and the table itself, so the launch needs no value
+// from the device.
+//   - The Lq*G query rows of the head are cut into row tiles (geometry()
+//     in kernels/paged_attention.py): a tile holds up to 32 rows at
+//     D <= 128, 16 up to D 512 and fewer past it, so at decode (one tile)
+//     each page is read once per kv head, and beyond a tile once a tile.
+//     A warp holds RT rows (4, or 2 and 1 past D 512; q in a shared-memory
+//     tile, the f32 accumulator in registers), and the tile's nt warps (a
+//     "row team") use the same staged keys.
 //   - Bytes: each key's rows (codes, scale and zmin of K and V, or the fp
 //     rows) are copied into the team's ring in shared memory by cp.async,
 //     16 bytes a copy where a row's length and the pointers allow (a 4-bit
 //     row of D 64 is two 16-byte copies of codes and one each of scale and
 //     zmin), else 8 or 4, else plain loads (a 1-bit row of D 8 and the
 //     like).  The ring holds STAGES chunks; two are in flight while the
-//     warp computes on the third, and no register holds them.
-//   - Work: a key's row is cut across L lanes of E elements (E = 8, or 16
-//     past D 256; L*E >= D), a "token group", so a warp takes a chunk of
-//     T = 32/L keys at once.  Each lane dequantizes its E codes in
-//     registers (code * scale + zmin; a code becomes a float by the
-//     exponent trick, with no conversion instruction), adds its RT partial
-//     dots, and the L lanes sum them by shuffles.  The running max is the
-//     warp's (shuffles across its T keys), so the rescale of l and acc is a
-//     uniform branch taken only when the max grows (exp(0) = 1 otherwise,
-//     the same bytes as rescaling always).  Masked probabilities are zero
-//     after the max update, as in the TPU kernel.  Scores are scaled by
-//     log2(e) and exponentiated by exp2.
+//     warp computes on the third, and no register holds them.  Scale and
+//     zmin are staged only where a lane's E elements share a region (as
+//     on the serve path); else each element reads its own from global
+//     memory, which keeps the ring small at any group size.
+//   - Work: a key's row is cut across L lanes of E elements (E = 8, 16
+//     past D 256, 32 past D 512, 96 past D 1024; L*E >= D), a "token
+//     group", so a warp takes a chunk of T = 32/L keys at once.  Each
+//     lane dequantizes its E codes in registers (code * scale + zmin; a
+//     code becomes a float by the exponent trick, with no conversion
+//     instruction), adds its RT partial dots, and the L lanes sum them by
+//     shuffles.  The running max is the warp's (shuffles across its T
+//     keys), so the rescale of l and acc is a uniform branch taken only
+//     when the max grows (exp(0) = 1 otherwise, the same bytes as
+//     rescaling always).  Masked probabilities are zero after the max
+//     update, as in the TPU kernel.  Scores are scaled by log2(e) and
+//     exponentiated by exp2.
 //   - Up to 4 row teams ("token teams") take interleaved chunks of the
-//     split when it is long enough.  At the end each warp sums its T token
-//     groups by shuffles, and the token teams' states are combined in team
-//     order through shared memory into the split's partial (m, l,
-//     acc[R][D]), f32, in the workspace.
+//     split when it is long enough, and at least 2 where a warp takes one
+//     key a chunk (T = 1; see error_bound in kernels/paged_attention.py).
+//     At the end each warp sums its T token groups by shuffles, and the
+//     token teams' states are combined in team order through shared
+//     memory into the split's partial (m, l, acc[R][D]) of the tile's
+//     rows, f32, in the workspace.
 //
-// paged_combine_kernel, one block per (slot, kv head): for each row,
+// paged_combine_kernel, one thread per output element: for each row,
 // M = max_s m_s, then out = sum_s acc_s 2^(m_s - M) / max(sum_s l_s
 // 2^(m_s - M), 1e-30) (m in log2 units), summed in split order, in q's
-// dtype.  An empty split
-// adds exactly 0 (key 0 is always visible, so M is finite).  No atomics
-// anywhere: every call, and a CUDA-graph replay, gives the same bytes.
+// dtype.  An empty split adds exactly 0 (key 0 is always visible, so M is
+// finite).  No atomics anywhere: every call, and a CUDA-graph replay,
+// gives the same bytes.
 //
 // The Pallas body has a second dequant form, "lut" (bits <= 4), which
 // rewrites q.k and p.v as sums of binary matmuls so that the TPU's matrix
@@ -79,10 +89,15 @@ namespace repro_torch {
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int RT = 4;          // query rows a warp holds (ROWS_PER_WARP)
 constexpr int STAGES = 3;      // chunks in a ring
-constexpr int MAX_WARPS = 8;   // row teams x token teams (MAX_ROWS = 32)
+constexpr int MAX_WARPS = 8;   // warps a block: row teams x token teams
 constexpr unsigned FULL = 0xffffffffu;
+
+// query rows a warp holds at E elements a lane (ROWS_PER_WARP): RT*E
+// accumulators a thread
+__host__ __device__ constexpr int rows_per_warp(int E) {
+  return E <= 16 ? 4 : E == 32 ? 2 : 1;
+}
 
 // The launch: shapes, the block's geometry (from the wrapper's geometry())
 // and the byte layout of a key's slot in the ring.
@@ -93,10 +108,11 @@ struct Params {
   const int* table;
   const int* pos;
   float* ws;
-  int Lq, KV, G, D, ps, P, S, gs, R;
+  int Lq, KV, G, D, ps, P, S, gs, ng, R;  // ng regions a row
   int L, T, NT, TW;                 // lanes a key, groups a warp, teams
   int row_bytes, grp_bytes;         // a key's code (or fp) row, scale row
-  int row_pad, grp_pad;             // the same, padded to 16 in the ring
+  int row_pad, grp_pad;             // the same in the ring (16-byte pad;
+                                    // no scale rows there if GROUPED)
   int slot_bytes;                   // K then V: row (+ scale + zmin)
   int wr, wg;                       // copy widths of rows and scale rows
   int zero;                         // the slots have padding to clear
@@ -110,13 +126,16 @@ __host__ __device__ constexpr int lane_bytes() {
   return BITS == 0 ? E * (int)sizeof(PT) : E * BITS / 8;
 }
 
-// The lane's E elements of a row (codes at `row`, scale/zmin at `sc`/`zm`,
-// all in the ring), dequantized in registers.  gi[e] is element e's region
-// (GROUPED: gs not a multiple of E) or gi[0] the lane's one region.
+// The lane's E elements of a row (codes at `row` in the ring, the row's
+// scale/zmin at `sc`/`zm`), dequantized in registers.  The lane's elements
+// start at element d0, in region g0 (at most ng - 1: elements past D, the
+// lanes' padding, take region ng - 1, finite, and q is 0 there); unless
+// GROUPED (gs not a multiple of E) they all lie in it.
 template <int BITS, typename PT, bool GROUPED, int E>
 __device__ __forceinline__ void load_row(const unsigned char* row,
                                          const float* sc, const float* zm,
-                                         const int* gi, float (&x)[E]) {
+                                         int g0, int d0, int gs, int ng,
+                                         float (&x)[E]) {
   if constexpr (BITS == 0) {
     if constexpr (sizeof(PT) == 4) {
 #pragma unroll
@@ -139,28 +158,46 @@ __device__ __forceinline__ void load_row(const unsigned char* row,
     }
   } else {
     constexpr unsigned MASK = (1u << BITS) - 1u;
-    constexpr int NB = E * BITS / 8;              // 16 down to 1 bytes
+    constexpr int NB = E * BITS / 8;  // 96 down to 1 bytes; the lane's
+                                      // offset is a multiple of NB
     unsigned w[NB >= 4 ? NB / 4 : 1];
-    if constexpr (NB == 16) {
-      const uint4 v = *reinterpret_cast<const uint4*>(row);
-      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
-    } else if constexpr (NB == 8) {
-      const uint2 v = *reinterpret_cast<const uint2*>(row);
-      w[0] = v.x, w[1] = v.y;
-    } else if constexpr (NB == 4) {
-      w[0] = *reinterpret_cast<const unsigned*>(row);
+    if constexpr (NB % 16 == 0) {
+#pragma unroll
+      for (int c = 0; c < NB / 16; ++c) {
+        const uint4 v = reinterpret_cast<const uint4*>(row)[c];
+        w[4 * c] = v.x, w[4 * c + 1] = v.y, w[4 * c + 2] = v.z,
+        w[4 * c + 3] = v.w;
+      }
+    } else if constexpr (NB % 8 == 0) {
+#pragma unroll
+      for (int c = 0; c < NB / 8; ++c) {
+        const uint2 v = reinterpret_cast<const uint2*>(row)[c];
+        w[2 * c] = v.x, w[2 * c + 1] = v.y;
+      }
+    } else if constexpr (NB % 4 == 0) {
+#pragma unroll
+      for (int c = 0; c < NB / 4; ++c)
+        w[c] = reinterpret_cast<const unsigned*>(row)[c];
     } else if constexpr (NB == 2) {
       w[0] = *reinterpret_cast<const unsigned short*>(row);
     } else {
       w[0] = *row;
     }
-    float s = sc[gi[0]], z = zm[gi[0]];
+    float s = sc[g0], z = zm[g0];
+    // GROUPED: the region moves on at element `edge` of the lane, every gs
+    // (counted, not divided, so no register holds a region per element)
+    int g = g0, edge = (g0 + 1) * gs - d0;
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const unsigned code = (w[e * BITS / 32] >> ((e * BITS) % 32)) & MASK;
       // 2^23 + code as a float, minus 2^23: the code, exactly
       const float f = __uint_as_float(0x4b000000u | code) - 8388608.f;
-      if constexpr (GROUPED) s = sc[gi[e]], z = zm[gi[e]];
+      if constexpr (GROUPED) {
+        if (e == edge) {
+          g = min(g + 1, ng - 1), edge += gs;
+          s = sc[g], z = zm[g];
+        }
+      }
       x[e] = fmaf(f, s, z);
     }
   }
@@ -196,13 +233,18 @@ __global__ void __launch_bounds__(32 * MAX_WARPS)
 paged_split_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool QUANT = BITS != 0;
-  const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  constexpr int RT = rows_per_warp(E);
+  const int s = blockIdx.x % p.S, tile = blockIdx.x / p.S;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int rt = warp % p.NT, team = warp / p.NT;
   const int grp = lane / p.L, j = lane % p.L;
   const int d0 = j * E;
   const int R = p.R, D = p.D;
+  // the block's row tile: rows row0 + [0, nrows) of the head's R
+  const int tile_rows = p.NT * RT;
+  const int row0 = tile * tile_rows, nrows = min(tile_rows, R - row0);
   float* ws = p.ws + ((size_t)(b * p.KV + h) * p.S + s) * (R * (D + 2));
 
   // the combine kernel may be scheduled now; it waits for this grid to end
@@ -212,8 +254,10 @@ paged_split_kernel(const Params p) {
   const int t_hi = min((s + 1) * p.P / p.S * p.ps,
                        min(pos0 + p.Lq, p.P * p.ps));
   if (t_lo >= t_hi) {                 // past the live keys: empty partial
-    for (int i = tid; i < R * (D + 2); i += nthreads)
-      ws[i] = i < R ? NEG_INF : 0.f;
+    for (int i = tid; i < nrows; i += nthreads)
+      ws[row0 + i] = NEG_INF, ws[R + row0 + i] = 0.f;
+    for (int i = tid; i < nrows * D; i += nthreads)
+      ws[2 * R + row0 * D + i] = 0.f;
     return;
   }
 
@@ -234,7 +278,7 @@ paged_split_kernel(const Params p) {
   int qpos[RT];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
-    const int i = rt * RT + r;
+    const int i = row0 + rt * RT + r;
     qpos[r] = -1;                     // a row past R sees no key
     const int lq = i / p.G, g = i - lq * p.G;
     const size_t off = ((((size_t)b * p.Lq + lq) * p.KV + h) * p.G + g) * D;
@@ -288,11 +332,7 @@ paged_split_kernel(const Params p) {
                         qr[r][4 * c + 3]);
   }
   __syncwarp();
-  int gi[GROUPED ? E : 1];
-  if constexpr (QUANT) {
-#pragma unroll
-    for (int e = 0; e < (GROUPED ? E : 1); ++e) gi[e] = (d0 + e) / p.gs;
-  }
+  const int g0 = QUANT ? min(d0 / p.gs, p.ng - 1) : 0;
 
   float m[RT], l[RT], acc[RT][E];
 #pragma unroll
@@ -307,7 +347,10 @@ paged_split_kernel(const Params p) {
   unsigned char* ring = rings + team * ring_bytes;
   const int step = p.TW * p.T;
   const int nk = max(0, (t_hi - t_lo - team * p.T + step - 1) / step);
-  const int ur = p.row_bytes / p.wr, ug = QUANT ? p.grp_bytes / p.wg : 0;
+  // a key's copies: its code (or fp) rows, and where a lane's elements
+  // share a region (!GROUPED) its scale and zmin rows
+  const int ur = p.row_bytes / p.wr;
+  const int ug = QUANT && !GROUPED ? p.grp_bytes / p.wg : 0;
   const int uhalf = ur + 2 * ug;      // copies of K's (or V's) rows
   const int upt = 2 * uhalf;          // copies a key
   const int half = p.slot_bytes / 2;  // K's part of a slot, then V's
@@ -337,16 +380,20 @@ paged_split_kernel(const Params p) {
   const int u_first = j + p.L * rt, u_step = p.L * p.NT;
   const Copy c0 = decode(u_first < upt ? u_first : 0);
 
+  // the pool row of key t of this slot and head; t / ps by a float
+  // reciprocal, corrected (exact below 2^24 keys)
+  auto key_row = [&](int t) {
+    int pg = __float2int_rz((float)t * p.inv_ps);
+    pg -= pg * p.ps > t;
+    pg += (pg + 1) * p.ps <= t;
+    return ((size_t)p.table[(size_t)b * p.P + pg] * p.ps + (t - pg * p.ps)) *
+               p.KV + h;
+  };
+
   auto issue = [&](int k) {
     const int t = t_lo + (k * p.TW + team) * p.T + grp;
     if (k < nk && t < t_hi) {
-      // t / ps by a float reciprocal, corrected (exact below 2^24 keys)
-      int pg = __float2int_rz((float)t * p.inv_ps);
-      pg -= pg * p.ps > t;
-      pg += (pg + 1) * p.ps <= t;
-      const size_t row =
-          ((size_t)p.table[(size_t)b * p.P + pg] * p.ps + (t - pg * p.ps)) *
-              p.KV + h;
+      const size_t row = key_row(t);
       unsigned char* slot = ring + ((k % STAGES) * p.T + grp) * p.slot_bytes;
       if (u_first < upt)
         copy_bytes(slot + c0.dst, c0.src + row * c0.stride + c0.off, c0.w);
@@ -363,10 +410,25 @@ paged_split_kernel(const Params p) {
     const int t = t_lo + (k * p.TW + team) * p.T + grp;  // the group's key
     const unsigned char* slot =
         ring + ((k % STAGES) * p.T + grp) * p.slot_bytes;
+    // scale and zmin rows of K and V: staged after the codes, or (GROUPED)
+    // in global memory, at a live key's row (a key past the split's end
+    // reads the split's first, and is masked)
+    const float *ks, *kz, *vs, *vz;
+    if constexpr (GROUPED) {
+      const size_t off = key_row(t < t_hi ? t : t_lo) * p.ng;
+      ks = reinterpret_cast<const float*>(p.ks) + off;
+      kz = reinterpret_cast<const float*>(p.kz) + off;
+      vs = reinterpret_cast<const float*>(p.vs) + off;
+      vz = reinterpret_cast<const float*>(p.vz) + off;
+    } else {
+      ks = reinterpret_cast<const float*>(slot + p.row_pad);
+      kz = ks + p.grp_pad / 4;
+      vs = reinterpret_cast<const float*>(slot + half + p.row_pad);
+      vz = vs + p.grp_pad / 4;
+    }
     float x[E];
-    const float* kg = reinterpret_cast<const float*>(slot + p.row_pad);
-    load_row<BITS, PT, GROUPED, E>(slot + lane_off, kg, kg + p.grp_pad / 4,
-                                   gi, x);
+    load_row<BITS, PT, GROUPED, E>(slot + lane_off, ks, kz, g0, d0, p.gs,
+                                   p.ng, x);
     float sc[RT];                     // scores, then probabilities
 #pragma unroll
     for (int r = 0; r < RT; ++r) {    // two chains a dot
@@ -416,10 +478,8 @@ paged_split_kernel(const Params p) {
     // a key past the split's end has no copy in its slot (p = 0 there,
     // but the slot may hold any bits)
     if (t >= t_hi) return;
-    const unsigned char* vslot = slot + half;
-    const float* vg = reinterpret_cast<const float*>(vslot + p.row_pad);
-    load_row<BITS, PT, GROUPED, E>(vslot + lane_off, vg, vg + p.grp_pad / 4,
-                                   gi, x);
+    load_row<BITS, PT, GROUPED, E>(slot + half + lane_off, vs, vz, g0, d0,
+                                   p.gs, p.ng, x);
 #pragma unroll
     for (int r = 0; r < RT; ++r)
 #pragma unroll
@@ -450,91 +510,95 @@ paged_split_kernel(const Params p) {
 
   // token teams' states through shared memory, combined in team order
   __syncthreads();                    // every ring is done
+  // one team's m[n], l[n], acc[n][D] for the tile's n = tile_rows rows
   float* part = reinterpret_cast<float*>(smem);
-  const int pw = R * (D + 2);         // one team's m[R], l[R], acc[R][D]
+  const int n = tile_rows, pw = n * (D + 2);
   if (grp == 0) {
 #pragma unroll
     for (int r = 0; r < RT; ++r) {
-      const int i = rt * RT + r;
-      if (i >= R) continue;
+      const int i = rt * RT + r;      // the row in the tile
+      if (i >= nrows) continue;
       float* pt = part + team * pw;
-      if (j == 0) pt[i] = m[r], pt[R + i] = l[r];
+      if (j == 0) pt[i] = m[r], pt[n + i] = l[r];
 #pragma unroll
       for (int e = 0; e < E; ++e)
-        if (d0 + e < D) pt[2 * R + i * D + d0 + e] = acc[r][e];
+        if (d0 + e < D) pt[2 * n + i * D + d0 + e] = acc[r][e];
     }
   }
   __syncthreads();
-  for (int idx = tid; idx < R * D; idx += nthreads) {
+  for (int idx = tid; idx < nrows * D; idx += nthreads) {
     const int i = idx / D;
     float mt = NEG_INF;
     for (int w = 0; w < p.TW; ++w) mt = fmaxf(mt, part[w * pw + i]);
     float a = 0.f, lt = 0.f;
     for (int w = 0; w < p.TW; ++w) {
       const float c = exp2f(part[w * pw + i] - mt);
-      a = fmaf(part[w * pw + 2 * R + idx], c, a);
-      lt = fmaf(part[w * pw + R + i], c, lt);
+      a = fmaf(part[w * pw + 2 * n + idx], c, a);
+      lt = fmaf(part[w * pw + n + i], c, lt);
     }
-    ws[2 * R + idx] = a;
-    if (idx - i * D == 0) ws[i] = mt, ws[R + i] = lt;
+    ws[2 * R + row0 * D + idx] = a;
+    if (idx - i * D == 0) ws[row0 + i] = mt, ws[R + row0 + i] = lt;
   }
 }
 
-// out[b, lq, h, g, :] for every row i = lq*G + g of (b, h): the splits'
-// partials combined in split order.  Launched as a programmatic dependent
-// of the split kernel, so its blocks may start early; they wait for the
-// split kernel to finish before reading its partials.
+// out[b, lq, h, g, d] for row i = lq*G + g of (b, h): the splits' partials
+// combined in split order, one thread an output, COMBINE_THREADS outputs a
+// block (blockIdx.y).  Launched as a programmatic dependent of the split
+// kernel, so its blocks may start early; they wait for the split kernel to
+// finish before reading its partials.
+constexpr int COMBINE_THREADS = 256;
+
 template <typename QT>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(COMBINE_THREADS)
 paged_combine_kernel(const float* __restrict__ ws, QT* __restrict__ out,
                      int S, int R, int D, int Lq, int KV, int G) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int idx = blockIdx.y * COMBINE_THREADS + threadIdx.x;
+  if (idx >= R * D) return;
   const int bh = blockIdx.x, b = bh / KV, h = bh - b * KV;
   const int sw = R * (D + 2);
   const float* base = ws + (size_t)bh * S * sw;
   constexpr int CB = 16;                 // splits whose loads go together
-  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
-    const int i = idx / D, d = idx - i * D;
-    // split s0 + c's m, l and acc, 0-weighted past S
-    float mm[CB], ll[CB], aa[CB];
-    auto load = [&](int s0) {
+  const int i = idx / D, d = idx - i * D;
+  // split s0 + c's m, l and acc, 0-weighted past S
+  float mm[CB], ll[CB], aa[CB];
+  auto load = [&](int s0) {
 #pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        const float* w = base + (size_t)(s0 + c) * sw;
-        const bool in = s0 + c < S;
-        mm[c] = in ? w[i] : NEG_INF;
-        ll[c] = in ? w[R + i] : 0.f;
-        aa[c] = in ? w[2 * R + idx] : 0.f;
-      }
-    };
-    load(0);
-    float mt = NEG_INF;
-#pragma unroll
-    for (int c = 0; c < CB; ++c) mt = fmaxf(mt, mm[c]);
-    for (int s0 = CB; s0 < S; ++s0) mt = fmaxf(mt, base[(size_t)s0 * sw + i]);
-    float a = 0.f, lt = 0.f;
-    for (int s0 = 0; s0 < S; s0 += CB) {
-      if (s0) load(s0);
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-        if (s0 + c >= S) break;
-        const float e = exp2f(mm[c] - mt);  // 0 for an empty split
-        a = fmaf(aa[c], e, a);
-        lt = fmaf(ll[c], e, lt);
-      }
+    for (int c = 0; c < CB; ++c) {
+      const float* w = base + (size_t)(s0 + c) * sw;
+      const bool in = s0 + c < S;
+      mm[c] = in ? w[i] : NEG_INF;
+      ll[c] = in ? w[R + i] : 0.f;
+      aa[c] = in ? w[2 * R + idx] : 0.f;
     }
-    const int lq = i / G, g = i - lq * G;
-    out[((((size_t)b * Lq + lq) * KV + h) * G + g) * D + d] =
-        from_f32<QT>(a / fmaxf(lt, 1e-30f));
+  };
+  load(0);
+  float mt = NEG_INF;
+#pragma unroll
+  for (int c = 0; c < CB; ++c) mt = fmaxf(mt, mm[c]);
+  for (int s0 = CB; s0 < S; ++s0) mt = fmaxf(mt, base[(size_t)s0 * sw + i]);
+  float a = 0.f, lt = 0.f;
+  for (int s0 = 0; s0 < S; s0 += CB) {
+    if (s0) load(s0);
+#pragma unroll
+    for (int c = 0; c < CB; ++c) {
+      if (s0 + c >= S) break;
+      const float e = exp2f(mm[c] - mt);  // 0 for an empty split
+      a = fmaf(aa[c], e, a);
+      lt = fmaf(ll[c], e, lt);
+    }
   }
+  const int lq = i / G, g = i - lq * G;
+  out[((((size_t)b * Lq + lq) * KV + h) * G + g) * D + d] =
+      from_f32<QT>(a / fmaxf(lt, 1e-30f));
 }
 
 template <typename QT>
 int launch_combine(const float* ws, void* out, int B, int S, int R, int D,
                    int Lq, int KV, int G, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * KV);
-  cfg.blockDim = dim3(256);
+  cfg.gridDim = dim3(B * KV, (R * D + COMBINE_THREADS - 1) / COMBINE_THREADS);
+  cfg.blockDim = dim3(COMBINE_THREADS);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -558,17 +622,19 @@ int copy_width(int n, std::initializer_list<const void*> ptrs) {
 int pad16(int n) { return (n + 15) / 16 * 16; }
 
 template <typename PT, int BITS, bool GROUPED, int E>
-int launch_split(Params p, int B, cudaStream_t stream) {
+int launch_split(Params p, int B, int tiles, cudaStream_t stream) {
+  constexpr int RT = rows_per_warp(E);
   const int dp = p.L * E;                     // D padded to the lanes
   p.row_pad = pad16(dp * lane_bytes<BITS, PT, E>() / E);
   p.wr = copy_width(p.row_bytes, {p.kd, p.vd});
   if (BITS) {
-    const int ng = p.D / p.gs, ngp = (dp + p.gs - 1) / p.gs;
-    p.grp_bytes = 4 * ng;
-    p.grp_pad = pad16(4 * (ngp > ng ? ngp : ng));
+    p.ng = p.D / p.gs;
+    p.grp_bytes = 4 * p.ng;
+    // staged only where a lane's elements share a region
+    p.grp_pad = GROUPED ? 0 : pad16(p.grp_bytes);
     p.wg = copy_width(p.grp_bytes, {p.ks, p.kz, p.vs, p.vz});
   } else {
-    p.grp_bytes = p.grp_pad = 0, p.wg = 1;
+    p.ng = 1, p.grp_bytes = p.grp_pad = 0, p.wg = 1;
   }
   // a slot's stride modulo 128 bytes puts the T groups' reads of a row in
   // different banks (a group reads L * lane_bytes contiguous bytes)
@@ -579,7 +645,8 @@ int launch_split(Params p, int B, cudaStream_t stream) {
   p.zero = p.row_pad > p.row_bytes || p.grp_pad > p.grp_bytes;
   const size_t ring = (size_t)p.NT * p.TW * RT * p.L * E * sizeof(float)
                       + (size_t)p.TW * STAGES * p.T * p.slot_bytes;
-  const size_t part = (size_t)p.TW * p.R * (p.D + 2) * sizeof(float);
+  const size_t part =
+      (size_t)p.TW * p.NT * RT * (p.D + 2) * sizeof(float);
   const size_t smem = ring > part ? ring : part;
   auto kernel = paged_split_kernel<PT, BITS, GROUPED, E>;
   if (smem > 48 * 1024) {
@@ -587,22 +654,28 @@ int launch_split(Params p, int B, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<dim3(p.S, p.KV, B), 32 * p.NT * p.TW, smem, stream>>>(p);
+  kernel<<<dim3(p.S * tiles, p.KV, B), 32 * p.NT * p.TW, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// E = 8 elements a lane up to D 256, else 16; a lane's E elements lie in
-// one region when gs is a multiple of E
+// E elements a lane, from the wrapper's geometry(); at E 8 and 16 a lane's
+// elements lie in one region when gs is a multiple of E, and the E 32 and
+// 96 blocks (D past 512) find each element's region
 template <typename PT, int BITS>
-int launch_format(const Params& p, int B, cudaStream_t st) {
-  if (p.D > 256) {
-    if (BITS == 0 || p.gs % 16 == 0)
-      return launch_split<PT, BITS, false, 16>(p, B, st);
-    return launch_split<PT, BITS, BITS != 0, 16>(p, B, st);
+int launch_format(const Params& p, int B, int E, int tiles, cudaStream_t st) {
+  constexpr bool Q = BITS != 0;
+  switch (E) {
+    case 8:
+      return p.gs % 8 == 0 ? launch_split<PT, BITS, false, 8>(p, B, tiles, st)
+                           : launch_split<PT, BITS, Q, 8>(p, B, tiles, st);
+    case 16:
+      return p.gs % 16 == 0
+                 ? launch_split<PT, BITS, false, 16>(p, B, tiles, st)
+                 : launch_split<PT, BITS, Q, 16>(p, B, tiles, st);
+    case 32: return launch_split<PT, BITS, Q, 32>(p, B, tiles, st);
+    case 96: return launch_split<PT, BITS, Q, 96>(p, B, tiles, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  if (BITS == 0 || p.gs % 8 == 0)
-    return launch_split<PT, BITS, false, 8>(p, B, st);
-  return launch_split<PT, BITS, BITS != 0, 8>(p, B, st);
 }
 
 }  // namespace
@@ -610,15 +683,17 @@ int launch_format(const Params& p, int B, cudaStream_t st) {
 
 // C interface, bound with ctypes.  bits 0 = fp pages (page_bf16 picks their
 // dtype), else wire pages at 8/4/2/1 bits; for fp pages the scale/zmin
-// pointers are unused.  ws is f32 scratch of B*KV*splits*R*(D+2) floats; L,
-// T, nt, tw are the block geometry the wrapper computed (geometry()).
-// Returns the first CUDA error of the two launches (0 = both launched).
+// pointers are unused.  ws is f32 scratch of B*KV*splits*R*(D+2) floats;
+// E, L, T, nt, tw and tiles are the block geometry the wrapper decided
+// (geometry() in kernels/paged_attention.py), checked here.  Returns the
+// first CUDA error of the two launches (0 = both launched).
 extern "C" int repro_paged_attention(
     const void* q, const void* kd, const void* ks, const void* kz,
     const void* vd, const void* vs, const void* vz, const void* table,
     const void* pos, void* ws, void* out, int B, int Lq, int KV, int G,
-    int D, int ps, int P, int bits, int gs, int splits, int L, int T, int nt,
-    int tw, int q_bf16, int page_bf16, float sm_scale, void* stream) {
+    int D, int ps, int P, int bits, int gs, int splits, int E, int L, int T,
+    int nt, int tw, int tiles, int q_bf16, int page_bf16, float sm_scale,
+    void* stream) {
   using namespace repro_torch;
   Params p{};
   p.q = q;
@@ -639,21 +714,24 @@ extern "C" int repro_paged_attention(
   p.inv_ps = 1.f / ps;
   const int qb = q_bf16 ? 2 : 4;
   p.q_vec = (uintptr_t)q % 16 == 0 && D * qb % 16 == 0;
-  const int e = D > 256 ? 16 : 8;
-  if (L * e < D || 32 % L || T * L != 32 || nt * tw > MAX_WARPS)
+  const long tile_rows = (long)nt * rows_per_warp(E);
+  if (L * E < D || L < 1 || 32 % L || T * L != 32 || nt < 1 || tw < 1 ||
+      nt * tw > MAX_WARPS || tiles < 1 || tiles * tile_rows < p.R ||
+      (tiles - 1) * tile_rows >= p.R || (long)splits * tiles > 0x7fffffffL ||
+      (long)p.R * D > 65535L * COMBINE_THREADS)
     return (int)cudaErrorInvalidValue;
   p.row_bytes = bits ? D * bits / 8 : D * (page_bf16 ? 2 : 4);
   auto st = static_cast<cudaStream_t>(stream);
   int err;
   switch (bits) {
     case 0:
-      err = page_bf16 ? launch_format<__nv_bfloat16, 0>(p, B, st)
-                      : launch_format<float, 0>(p, B, st);
+      err = page_bf16 ? launch_format<__nv_bfloat16, 0>(p, B, E, tiles, st)
+                      : launch_format<float, 0>(p, B, E, tiles, st);
       break;
-    case 1: err = launch_format<uint8_t, 1>(p, B, st); break;
-    case 2: err = launch_format<uint8_t, 2>(p, B, st); break;
-    case 4: err = launch_format<uint8_t, 4>(p, B, st); break;
-    case 8: err = launch_format<uint8_t, 8>(p, B, st); break;
+    case 1: err = launch_format<uint8_t, 1>(p, B, E, tiles, st); break;
+    case 2: err = launch_format<uint8_t, 2>(p, B, E, tiles, st); break;
+    case 4: err = launch_format<uint8_t, 4>(p, B, E, tiles, st); break;
+    case 8: err = launch_format<uint8_t, 8>(p, B, E, tiles, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   if (err) return err;

@@ -187,6 +187,13 @@ def _decode_case(dev, lq, pos, pps, bits=4, ps=16, kvh=8, gq=4, d=64):
     return q, k, v, _t(table, dev), _t(np.array(pos, np.int32), dev)
 
 
+def _force_splits(monkeypatch, splits):
+    """Force the kernels' split count (None: the plan's): launch_args
+    looks ``plan`` up at each call."""
+    if splits is not None:
+        monkeypatch.setattr(pa, "plan", lambda *shape: splits)
+
+
 def _within_bound(got, q, k, v, table, pos):
     want = pa.plain(q, k, v, table.long(), pos.long())
     tol = pa.error_bound(q, k, v, table, pos, want)
@@ -197,19 +204,21 @@ def _within_bound(got, q, k, v, table, pos):
 @pytest.mark.cuda
 @pytest.mark.parametrize("lq", [1, 3])
 @pytest.mark.parametrize("keys", [160, 4096])
-def test_paged_attention_kernel_at_serve_and_long_context(keys, lq):
+def test_paged_attention_kernel_at_serve_and_long_context(keys, lq,
+                                                         monkeypatch):
     """4 slots near 160 keys (the serve shape) and near 4096, under the
     plan's splits and under one split."""
     dev = _card()
     pos = [keys - lq, keys - 7 - lq, keys - 16, 37]
     case = _decode_case(dev, lq, pos, keys // 16)
     for splits in (None, 1):
-        _within_bound(pa.paged_attention(*case, splits=splits), *case)
+        _force_splits(monkeypatch, splits)
+        _within_bound(pa.paged_attention(*case), *case)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [None, 8, 4, 2, 1])
-def test_paged_attention_every_split_count(bits):
+def test_paged_attention_every_split_count(bits, monkeypatch):
     """Every split count from 1 to P gives the plain version's result, with
     slots whose table entries past their live pages point at scratch
     (splits that hold only masked or scratch pages)."""
@@ -218,25 +227,27 @@ def test_paged_attention_every_split_count(bits):
         q, k, v, table, pos = _pages(bits, dev, lq=lq)
         want = pa.plain(q, k, v, table.long(), pos.long())
         for splits in range(1, table.shape[1] + 1):
-            got = pa.paged_attention(q, k, v, table, pos, splits=splits)
+            _force_splits(monkeypatch, splits)
+            got = pa.paged_attention(q, k, v, table, pos)
             torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("splits", [None, 1, 2, 11])
-def test_paged_attention_is_deterministic_and_replays(splits):
+def test_paged_attention_is_deterministic_and_replays(splits, monkeypatch):
     """Two calls give the same bytes (the splits are combined in a fixed
     order), a CUDA graph replay gives the eager call's, and each call adds
     one to the launch count."""
     dev = _card()
     case = _decode_case(dev, 1, [159, 37, 0, 150], 11)
+    _force_splits(monkeypatch, splits)
     before = pa.paged_attention.launches
-    got = pa.paged_attention(*case, splits=splits)
-    assert torch.equal(got, pa.paged_attention(*case, splits=splits))
+    got = pa.paged_attention(*case)
+    assert torch.equal(got, pa.paged_attention(*case))
     assert pa.paged_attention.launches == before + 2
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        replayed = pa.paged_attention(*case, splits=splits)
+        replayed = pa.paged_attention(*case)
     replayed.zero_()
     graph.replay()
     torch.cuda.synchronize()
@@ -251,6 +262,15 @@ def test_paged_attention_is_deterministic_and_replays(splits):
     (16, 16, 1, 2, 3, 1),       # 1-bit rows of 2 bytes, page size 1
     (512, 128, 2, 1, 1, None),  # 16 elements a lane
     (64, 16, 16, 8, 4, 2),      # 32 query rows: 8 row warps
+    (64, 16, 16, 4, 9, 4),      # 36 query rows: two row tiles
+    (64, 16, 16, 8, 8, None),   # 64 query rows: two row tiles
+    (512, 128, 2, 8, 4, 4),     # 32 rows at D 512: two tiles of 16
+    (640, 128, 4, 2, 2, 8),     # 32 elements a lane, 2 rows a warp
+    (1024, 64, 2, 1, 3, 2),     # 32 elements a lane, regions of 64
+    (1100, 100, 3, 1, 1, 4),    # 96 elements a lane, 16 lanes a key
+    (3072, 128, 1, 2, 1, None),  # 96 elements a lane, a row a warp
+    (1024, 2, 2, 2, 2, 4),      # a region every 2 elements: global scales
+    (3070, 1, 1, 1, 1, 8),      # the widest D the page-walk kernel took
 ])
 def test_paged_attention_odd_shapes(d, gs, ps, gq, lq, bits):
     """Widths off the serve path, within error_bound, once with pages that
@@ -283,10 +303,11 @@ def test_paged_attention_refuses_what_it_does_not_take():
     q, k, v, table, pos = _decode_case(dev, 1, [40, 20], 4)
     with pytest.raises(TypeError):
         pa.paged_attention(q.to(torch.float16), k, v, table, pos)
-    with pytest.raises(ValueError, match="splits"):
-        pa.paged_attention(q, k, v, table, pos, splits=5)
-    with pytest.raises(ValueError, match="rows"):
-        pa.paged_attention(q.repeat(1, 9, 1, 1, 1), k, v, table, pos)
+    d = pa.MAX_D + 8
+    big = torch.zeros((3, 2, 8, d), device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention(torch.zeros((2, 1, 8, 1, d), device=dev), big,
+                           big, table[:, :1], pos.clamp(max=1))
     with pytest.raises(ValueError, match="kv heads"):
         pa.paged_attention(q[:, :, :4], k, v, table, pos)
 
