@@ -18,9 +18,17 @@ Phases, each printed as one JSON line:
            seed) through the port's Server, 4-bit paged KV, fused
            attention, bf16, under three schemes: lq4w (weight-only,
            quant_matmul), lq2_lut (act_quant then lut_matmul) and lq8
-           (act_quant then quant_matmul); launch counts must match each path
-  profile  torch.profiler over steady decode steps of each scheme: device
-           busy time per step against the host-clock step (idle share)
+           (act_quant then quant_matmul); each pool's decode step and
+           prefill bucket run as captured CUDA graphs (decode_compilations
+           must be 1), then the same requests run with every step issued
+           eagerly on the same engine (tokens must be identical); launch
+           counts must match each path in both runs
+  profile  torch.profiler over steady decode steps of each scheme, by
+           graph replay and eagerly: device busy time per step against the
+           host-clock step (idle share, also against untraced steps), the
+           device operations seen beside the decode graph's nodes; and over
+           prefills of one 176-token bucket; the port's kernel nodes in
+           each graph must be exactly the path's launches a call
   parity   the same requests through the port on the card (kernels) and on
            the CPU (plain versions), f32, 2 layers at full width: lq4w
            (greedy tokens identical, logits within a stated tolerance),
@@ -30,7 +38,10 @@ Phases, each printed as one JSON line:
            replays, with the eager loop that the wrapper's host work paces
            beside it), its plain version and a library call computing the
            same function, beside the card's bound; paged_attention at the
-           serve shape and at 4096 keys a slot
+           serve shape and at 4096 keys a slot; quant_matmul (lq4w, lq8)
+           and lut_matmul (2 and 4 bits) also at M = 176, the prefill
+           bucket's route; a one-element add's graph node beside
+           act_quant's per-call time
 
 then a ``{"kernels": [...]}`` summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed check raises and the script
@@ -470,11 +481,13 @@ def _engine_class():
 
     class TimedEngine(PagedEngine):
         """PagedEngine that times each prefill and decode step on the host
-        clock (the step ends in a copy of its tokens to the host) and
-        checks that its logits are finite; ``record`` keeps the logits of
-        the live slots and the tokens each call emits for the parity
-        phase, and ``forced`` (the emitted tokens of another run) makes
-        each call emit those instead of its own greedy tokens."""
+        clock (a step ends in a copy of its tokens to the host) and checks
+        that its logits are finite.  ``eager`` (set by this script, not an
+        engine option) runs each step's body operation by operation
+        (``_run_eager``) instead of replaying its graph; ``record`` keeps
+        the logits of the live rows and the tokens each call emits for the
+        parity phases, and ``forced`` (the emitted tokens of another run)
+        makes each call emit those instead of its own greedy tokens."""
 
         def __init__(self, *a, record=False, forced=None, **kw):
             super().__init__(*a, **kw)
@@ -482,6 +495,7 @@ def _engine_class():
             self.logits = [] if record else None
             self.emitted = [] if record else None
             self.forced = forced
+            self.eager = False
 
         def _emit(self, out):
             if self.forced is not None:
@@ -491,38 +505,47 @@ def _engine_class():
             return out
 
         def prefill_request(self, pool, tokens, page_ids):
-            return self._emit(super().prefill_request(pool, tokens,
-                                                      page_ids))
+            t0 = time.perf_counter()
+            out = super().prefill_request(pool, tokens, page_ids)
+            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            return self._emit(out)
 
         def decode_step_batch(self, pool, tokens, page_table, pos):
-            return self._emit(super().decode_step_batch(pool, tokens,
-                                                        page_table, pos))
+            t0 = time.perf_counter()
+            out = super().decode_step_batch(pool, tokens, page_table, pos)
+            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            return self._emit(out)
+
+        def _run(self, kind, pool):
+            if self.eager:
+                self._run_eager(kind, pool)
+            else:
+                super()._run(kind, pool)
 
         def _check(self, logits, rows, kind):
             if not bool(torch.isfinite(logits[rows]).all()):
                 raise AssertionError("non-finite logits")
             if self.logits is not None:
-                self.logits.append((kind, logits[rows].float().cpu()))
+                # a copy: on the CPU, float() and cpu() would hand back
+                # the engine's output buffer, which the next step rewrites
+                self.logits.append((kind, logits[rows].to(
+                    "cpu", torch.float32, copy=True)))
 
-        def prefill_logits(self, pool, tokens, page_ids):
-            t0 = time.perf_counter()
+        def _prefill(self, pool, tokens, page_ids):
             # the bucket's rows past the prompt are padding, whose outputs
             # no one reads (the logits are the prompt's last row's)
             self.kind = "prefill"
             self.live = torch.arange(self.pcfg.max_context) < len(tokens)
-            out = super().prefill_logits(pool, tokens, page_ids)
-            self._check(out, slice(None), "prefill")
-            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+            out = super()._prefill(pool, tokens, page_ids)
+            self._check(out[0], slice(None), "prefill")
             return out
 
-        def decode_logits(self, pool, tokens, page_table, pos):
-            t0 = time.perf_counter()
+        def _decode(self, pool, tokens, page_table, pos):
             # slots without a request attend over the scratch page
             self.kind = "decode"
             self.live = torch.as_tensor(np.asarray(page_table)[:, 0] != 0)
-            out = super().decode_logits(pool, tokens, page_table, pos)
-            self._check(out, self.live.to(out.device), "decode")
-            self.decode_ms.append((time.perf_counter() - t0) * 1e3)
+            out = super()._decode(pool, tokens, page_table, pos)
+            self._check(out[0], self.live.to(out[0].device), "decode")
             return out
 
     return TimedEngine
@@ -581,48 +604,87 @@ def expected_launches(scheme: str, n_layers: int, prefills: int,
             "lut_matmul": proj if lut else 0}
 
 
-def phase_serve(dev, cfg, params, scheme) -> dict:
-    from repro_torch.models import transformer
-    n_params = sum(a.numel() for a in transformer.leaves(params))
-    engine = make_engine(cfg, params, scheme, dev)
-    # warm-up request: CUDA context, allocator, cuBLAS handles
-    serve(engine, prompts=_prompts(cfg, 1, 16, SEED + 7), new_tokens=2)
+def _timed_serve(engine, scheme, prompts, *, eager) -> dict:
+    """Serve ``prompts`` through ``engine``, by graph replay or, with
+    ``eager``, each step's body issued operation by operation; the launch
+    counts of the run must match the scheme's path exactly."""
+    from repro_torch.kernels import wrappers as kernel_wrappers
+    engine.eager = eager
     engine.prefill_ms.clear()
     engine.decode_ms.clear()
-    torch.cuda.reset_peak_memory_stats()
-    prompts = _prompts(cfg, N_REQUESTS, PROMPT, SEED)
-    from repro_torch.kernels import wrappers as kernel_wrappers
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    server, outs, wall = serve(engine, prompts=prompts,
-                               new_tokens=NEW_TOKENS)
+    try:
+        server, outs, wall = serve(engine, prompts=prompts,
+                                   new_tokens=NEW_TOKENS)
+    finally:
+        engine.eager = False
     launches = {name: fn.launches for name, fn in wrappers.items()}
     st = server.stats()
-    steps, prefills = st["steps"], st["prefills"]
-    want = expected_launches(scheme, cfg.n_layers, prefills, steps)
-    tokens = sum(len(o) for o in outs)
+    want = expected_launches(scheme, engine.cfg.n_layers, st["prefills"],
+                             st["steps"])
     if launches != want:
-        raise AssertionError(f"{scheme}: launches {launches}, want {want}")
+        raise AssertionError(f"{scheme} ({'eager' if eager else 'graphed'})"
+                             f": launches {launches}, want {want}")
+    return {"outs": outs, "wall": wall, "stats": st, "launches": launches,
+            "decode_ms": list(engine.decode_ms),
+            "prefill_ms": list(engine.prefill_ms)}
+
+
+def phase_serve(dev, cfg, params, scheme) -> dict:
+    """The scheme's serve run through the captured steps (one graph per
+    pool for the decode step and one for the prefill bucket), then the
+    same requests on the same engine with each step issued eagerly: the
+    tokens must be identical, and each pool must have captured its decode
+    step once."""
+    from repro_torch.models import transformer
+    n_params = sum(a.numel() for a in transformer.leaves(params))
+    engine = make_engine(cfg, params, scheme, dev)
+    # warm-up request: CUDA context, allocator, cuBLAS handles, the kernel
+    # builds (and a first pool's captures)
+    serve(engine, prompts=_prompts(cfg, 1, 16, SEED + 7), new_tokens=2)
+    torch.cuda.reset_peak_memory_stats()
+    prompts = _prompts(cfg, N_REQUESTS, PROMPT, SEED)
+    run = _timed_serve(engine, scheme, prompts, eager=False)
+    peak = torch.cuda.max_memory_allocated()
+    eager = _timed_serve(engine, scheme, prompts, eager=True)
+    outs, st = run["outs"], run["stats"]
+    tokens = sum(len(o) for o in outs)
     if tokens != N_REQUESTS * NEW_TOKENS or st["attention_mode"] != \
             "fused-cuda" or any(not 0 <= t < cfg.vocab_size
                                 for o in outs for t in o):
         raise AssertionError(f"serve output wrong: {tokens} tokens, "
                              f"mode {st['attention_mode']}")
+    step_p50 = statistics.median(run["decode_ms"])
+    eager_p50 = statistics.median(eager["decode_ms"])
     row = {"phase": "serve", "model": cfg.name, "params": n_params,
            "layers": cfg.n_layers, "d_model": cfg.d_model,
            "scheme": scheme, "kv_bits": KV_BITS, "kv_group": KV_GROUP,
            "dtype": cfg.dtype, "attention_mode": st["attention_mode"],
            "requests": N_REQUESTS, "prompt_len": PROMPT,
            "new_tokens": NEW_TOKENS, "max_slots": SLOTS,
-           "tokens": tokens, "wall_s": wall, "tok_per_s": tokens / wall,
-           "decode_steps": steps, "prefills": prefills,
-           "decode_step_ms_p50": statistics.median(engine.decode_ms),
-           "prefill_ms_p50": statistics.median(engine.prefill_ms),
+           "tokens": tokens, "wall_s": run["wall"],
+           "tok_per_s": tokens / run["wall"],
+           "decode_steps": st["steps"], "prefills": st["prefills"],
+           "decode_step_ms_p50": step_p50,
+           "prefill_ms_p50": statistics.median(run["prefill_ms"]),
+           "decode_compilations": st["decode_compilations"],
+           "eager_decode_step_ms_p50": eager_p50,
+           "eager_prefill_ms_p50": statistics.median(eager["prefill_ms"]),
+           "eager_wall_s": eager["wall"],
+           "graphed_over_eager_step": step_p50 / eager_p50,
+           "tokens_identical_eager": eager["outs"] == outs,
            "pool_bytes": st["pool_bytes"], "preemptions": st["preemptions"],
-           "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "launches": launches, "sample": outs[0][:8]}
+           "max_memory_allocated": peak,
+           "launches": run["launches"], "sample": outs[0][:8]}
     emit(row)
+    if not row["tokens_identical_eager"]:
+        raise AssertionError(f"{scheme}: the graphed steps' tokens differ "
+                             f"from the eager steps'")
+    if st["decode_compilations"] != 1:
+        raise AssertionError(f"{scheme}: decode compilations "
+                             f"{st['decode_compilations']}, want 1")
     return {"row": row, "engine": engine, "cfg": cfg}
 
 
@@ -631,11 +693,46 @@ def phase_serve(dev, cfg, params, scheme) -> dict:
 # ---------------------------------------------------------------------------
 
 PROFILE_STEPS = 16
+PREFILL_CALLS = 4
+
+
+# the port's device kernels (csrc/), as the profiler names them
+PORT_KERNELS = ("quant_matmul_kernel", "quant_matmul_splitk_kernel",
+                "lut_matmul_kernel", "lut_matmul_splitk_kernel",
+                "splitk_reduce_kernel", "paged_split_kernel",
+                "paged_combine_kernel", "act_quant_kernel")
+
+
+def port_kernel(name: str) -> str | None:
+    """Which of PORT_KERNELS a device function's name (mangled, or
+    demangled as the profiler gives it) is, if any."""
+    for k in PORT_KERNELS:
+        if f"{len(k)}{k}" in name or re.search(rf"::{k}\b", name):
+            return k
+    return None
+
+
+def expected_device_kernels(launches: dict, split_k: bool) -> dict:
+    """The port's device kernels, by name, that ``launches`` wrapper calls
+    issue: a matmul on the split-K route (M <= DECODE_M: every decode
+    step) launches its kernel and the shared fixed-order reduction, on
+    the one-pass route (the prefill bucket) one kernel; paged_attention
+    its split kernel and the combine; act_quant one kernel."""
+    mm = "_splitk_kernel" if split_k else "_kernel"
+    matmuls = launches["quant_matmul"] + launches["lut_matmul"]
+    want = {"quant_matmul" + mm: launches["quant_matmul"],
+            "lut_matmul" + mm: launches["lut_matmul"],
+            "splitk_reduce_kernel": matmuls if split_k else 0,
+            "paged_split_kernel": launches["paged_attention"],
+            "paged_combine_kernel": launches["paged_attention"],
+            "act_quant_kernel": launches["act_quant"]}
+    return {k: v for k, v in want.items() if v}
 
 
 def _device_busy(prof, steps: int) -> dict:
     """Union of the device intervals (kernels, copies, sets) a profiler
-    window recorded, with the kernels that took the most device time."""
+    window recorded, with the kernels that took the most device time and
+    the launches of each of the port's kernels a step."""
     from torch.autograd import DeviceType
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
@@ -653,47 +750,170 @@ def _device_busy(prof, steps: int) -> dict:
                      key=lambda r: -r[1])
     paged = sum(e.self_device_time_total for e in prof.key_averages()
                 if "paged_" in e.key)
+    port = {}
+    for e in prof.key_averages():
+        k = port_kernel(e.key)
+        if k and e.self_device_time_total > 0:
+            port[k] = port.get(k, 0) + e.count / steps
     return {"device_busy_ms_per_step": busy_us / 1e3 / steps,
             "device_ops_per_step": len(spans) / steps,
             "paged_attention_ms_per_step": paged / 1e3 / steps,
+            "port_kernels_per_step": port,
             "top_device_ms_per_step": [
                 {"name": k[:60], "ms": ms, "per_step": c}
                 for k, ms, c in by_name[:8]]}
 
 
-def phase_profile(serve_out) -> dict:
-    """``torch.profiler`` over PROFILE_STEPS decode steps of the serve
-    phase's engine with every slot busy: the device's busy time per step
-    against the host-clock step, so the device idle share is measured, not
-    inferred.  The window traces CUDA activity only, to disturb the host
-    little; the host step time inside it is printed beside the serve
-    phase's to show what tracing costs."""
+def _profiled(fn, calls: int) -> dict:
+    """``torch.profiler`` (CUDA activity only, to disturb the host little)
+    over ``calls`` calls of ``fn``: host-clock ms a call, the device's busy
+    time and operations a call (``_device_busy``) and its idle share."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    busy = _device_busy(prof, calls)
+    return {"host_step_ms": wall_ms, **busy, "device_idle_share":
+            1.0 - busy["device_busy_ms_per_step"] / wall_ms}
 
+
+def graph_nodes(engine, kind: str, pool) -> tuple[int, dict]:
+    """The nodes (kernels, copies, sets) of the graph the engine captured
+    for step ``kind`` of ``pool``, and its kernel nodes of the port's
+    kernels by name: what every replay launches, read from the
+    ``cudaGraph_t`` that the graph keeps through libcuda."""
+    import ctypes
+    cuda = ctypes.CDLL("libcuda.so.1")
+
+    def check(status, what):
+        if status != 0:
+            raise RuntimeError(f"{what} failed with CUresult {status}")
+
+    graph = ctypes.c_void_p(engine._graphs[pool][kind].graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    check(cuda.cuGraphGetNodes(graph, None, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * count.value)()
+    check(cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(count)),
+          "cuGraphGetNodes")
+    port = {}
+    for node in nodes:
+        node_type = ctypes.c_int(-1)
+        check(cuda.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(node_type)),
+              "cuGraphNodeGetType")
+        if node_type.value != 0:             # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        # CUDA_KERNEL_NODE_PARAMS_v2: func, 7 ints, kernelParams, extra,
+        # kern (pointer 7), ctx; the array leaves room to spare
+        params = (ctypes.c_void_p * 16)()
+        check(cuda.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                                 params),
+              "cuGraphKernelNodeGetParams")
+        func = ctypes.c_void_p(params[0])
+        if not func.value:
+            check(cuda.cuKernelGetFunction(ctypes.byref(func),
+                                           ctypes.c_void_p(params[7])),
+                  "cuKernelGetFunction")
+        name = ctypes.c_char_p()
+        check(cuda.cuFuncGetName(ctypes.byref(name), func), "cuFuncGetName")
+        k = port_kernel(name.value.decode())
+        if k:
+            port[k] = port.get(k, 0) + 1
+    return count.value, port
+
+
+def phase_profile(serve_out) -> dict:
+    """The serve phase's engine with every slot busy: PROFILE_STEPS // 2
+    decode steps on the host clock alone, then ``torch.profiler`` over
+    PROFILE_STEPS steps by graph replay and PROFILE_STEPS steps issued
+    eagerly.  Each window gives the device's busy time per step against
+    its host-clock step, so the device idle share is measured, not
+    inferred; tracing slows the graphed step, so the idle share is also
+    given against the untraced steps.  Beside the device operations the
+    graphed window saw a step stands the count expected, the nodes of the
+    decode graph (``graph_nodes``); the step also copies its inputs in and
+    its tokens out, and this script checks its logits, outside the graph.
+    Then PREFILL_CALLS prefills of a PROMPT-token request through the
+    pool's prefill graph (the MAX_CONTEXT bucket), with their busy time,
+    idle share and top kernels.  The kernel nodes of the port's kernels
+    in each graph must be exactly those the scheme's path launches a call
+    (``expected_device_kernels``); the profiler's counts of them stand
+    beside."""
     from repro_torch.serve.server import RequestParams, Server
     engine, cfg = serve_out["engine"], serve_out["cfg"]
     server = Server(cfg, None, engine.ecfg, engine.pcfg, engine=engine)
     for p in _prompts(cfg, SLOTS, PROMPT, SEED + 8):
-        server.submit(p, RequestParams(max_new_tokens=PROFILE_STEPS + 8))
-    for _ in range(3):                       # admit and prefill every slot
+        server.submit(p, RequestParams(max_new_tokens=MAX_CONTEXT - PROMPT))
+    for _ in range(3):        # admit and prefill every slot (and capture)
         server.step()
     if len(server.scheduler.active_requests()) != SLOTS:
         raise AssertionError("profile window needs every slot busy")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            server.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    busy = _device_busy(prof, PROFILE_STEPS)
-    row = {"phase": "profile", "scheme": engine.ecfg.weight_scheme,
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS // 2):
+        server.step()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3 / (PROFILE_STEPS // 2)
+    graphed = _profiled(server.step, PROFILE_STEPS)
+    engine.eager = True
+    try:
+        eager = _profiled(server.step, PROFILE_STEPS)
+    finally:
+        engine.eager = False
+    if len(server.scheduler.active_requests()) != SLOTS:
+        raise AssertionError("a request finished inside the windows")
+    pool, rid = server.pool, -1
+    if not pool.alloc(rid, -(-PROMPT // PAGE)):
+        raise AssertionError("no pages for the prefill window")
+    prompt = _prompts(cfg, 1, PROMPT, SEED + 11)[0]
+    try:
+        prefill = _profiled(lambda: engine.prefill_request(
+            pool, prompt, pool.pages_of(rid)), PREFILL_CALLS)
+    finally:
+        pool.free(rid)
+    nodes, in_graph = {}, {}
+    for k in ("decode", "prefill"):
+        nodes[k], in_graph[k] = graph_nodes(engine, k, pool)
+    scheme, layers = engine.ecfg.weight_scheme, cfg.n_layers
+    want = {"decode": expected_device_kernels(
+                expected_launches(scheme, layers, 0, 1), split_k=True),
+            "prefill": expected_device_kernels(
+                expected_launches(scheme, layers, 1, 0), split_k=False)}
+    row = {"phase": "profile", "scheme": scheme,
            "steps": PROFILE_STEPS, "slots": SLOTS,
-           "host_step_ms": wall_ms, "serve_phase_step_ms_p50":
-           serve_out["row"]["decode_step_ms_p50"], **busy,
-           "device_idle_share":
-           1.0 - busy["device_busy_ms_per_step"] / wall_ms}
+           "serve_phase_step_ms_p50": serve_out["row"]["decode_step_ms_p50"],
+           "untraced_host_step_ms": untraced_ms, **graphed,
+           "device_idle_share_untraced":
+           1.0 - graphed["device_busy_ms_per_step"] / untraced_ms,
+           "device_ops_expected_per_step": nodes["decode"],
+           "graph_nodes": nodes,
+           "port_kernels_in_graph": in_graph,
+           "port_kernels_expected_per_step": want["decode"],
+           "eager": {k: eager[k] for k in (
+               "host_step_ms", "device_busy_ms_per_step",
+               "device_ops_per_step", "device_idle_share",
+               "paged_attention_ms_per_step", "port_kernels_per_step")},
+           "prefill": {"prompt": PROMPT, "bucket": MAX_CONTEXT,
+                       "calls": PREFILL_CALLS,
+                       "note": "per_step keys are per prefill", **prefill,
+                       "port_kernels_expected_per_step": want["prefill"]}}
     emit(row)
+    # the wrappers' counts on the graphed path are what the captures
+    # launched, added at each replay; a replay launches every kernel node
+    # of its graph, so a graph that lost a kernel, or whose capture sent
+    # one elsewhere, fails here.  The profiler's counts stand beside them
+    # as the replays' measured launches, but are no gate: it can drop a
+    # few events in a window (a fractional count a step).
+    for kind in ("decode", "prefill"):
+        if in_graph[kind] != want[kind]:
+            raise AssertionError(
+                f"{scheme} {kind} graph: kernel nodes {in_graph[kind]} of "
+                f"the port's kernels, want {want[kind]}")
     return row
 
 
@@ -732,8 +952,9 @@ def _logit_diffs(g_log, c_log) -> list[float]:
 
 
 def phase_parity(dev, cfg, params, prompts) -> dict:
-    """The weight-only parity run: lq4w, free running, greedy tokens identical
-    and logits within PARITY_LOGIT_TOL."""
+    """The weight-only parity run: lq4w, free running, the card's captured
+    steps against the CPU's eager ones, greedy tokens identical and logits
+    within PARITY_LOGIT_TOL."""
     from repro_torch.models import transformer
     runs = []
     for d in (dev, torch.device("cpu")):
@@ -865,6 +1086,9 @@ def phase_parity_act(dev, cfg, params, prompts, scheme) -> dict:
     forced = None if scheme == "lq8" else cpu_engine.emitted
     engine = make_engine(cfg, transformer.params_to(params, dev), scheme,
                          dev, record=True, forced=forced)
+    # the tap reads each call's codes back to the host, which no captured
+    # step can do: this run issues every step eagerly
+    engine.eager = True
     with ActQuantTap("share", engine, ref.records) as tap:
         _, g_out, _ = serve(engine, prompts=prompts, new_tokens=8)
     diffs = _logit_diffs(engine.logits, cpu_engine.logits)
@@ -913,6 +1137,53 @@ def kernel_split_us(fn, calls: int = 20) -> dict:
             for e in prof.key_averages() if e.self_device_time_total > 0}
 
 
+def quant_matmul_layer(qws, m: int, gen, reps: int = 2,
+                       iters: int = 20) -> dict:
+    """One layer's 7 projections at M = ``m``, bf16 x, timed over every
+    layer's own packed weights ``qws`` (so they stream from memory as on
+    the path) by graph replay, per layer: the kernel (``ms``),
+    ``torch.matmul`` on the bf16 dequantized weights (``library_ms``) and
+    the bound.  M <= 16 runs the split-K kernel, larger M the one-pass
+    kernel (the prefill bucket's route).  Returns ``(times, xs, kernel)``,
+    the inputs by K and the timed loop beside the times."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import quant_matmul as qm
+    dev = qws[0][0].packed.device
+    xs = {qw.k: torch.randn((m, qw.k), generator=gen,
+                            device=dev).to(torch.bfloat16)
+          for qw in qws[0]}
+    wd = [[ops.dequantize_weight(qw, torch.bfloat16) for qw in row]
+          for row in qws]
+
+    def kernel():
+        for row in qws:
+            for qw in row:
+                qm.quant_matmul(xs[qw.k], qw.packed, qw.scale, qw.zmin,
+                                bits=qw.bits, group_size=qw.group_size)
+
+    def library():
+        for row in wd:
+            for w in row:
+                torch.matmul(xs[w.shape[0]], w)
+    nbytes = flops = 0
+    for qw in qws[0]:
+        nbytes += qw.nbytes() + m * qw.k * 2 + m * qw.n * 2
+        flops += 2 * m * qw.k * qw.n
+    b_ms, b_by = bound(nbytes, flops)
+    n_layers = len(qws)
+    return ({"ms": graph_time(kernel, reps, iters) / n_layers,
+             "library_ms": graph_time(library, reps, iters) / n_layers,
+             "bound_ms": b_ms, "bound_by": b_by,
+             "route": "split-K" if m <= qm.DECODE_M else "one-pass"},
+            xs, kernel)
+
+
+def _projections(engine) -> list:
+    """Every layer's 7 projection weights (QWeight) of an engine."""
+    return [[lay[a][b]["w"] for a, b in PROJECTION_NAMES]
+            for lay in engine.params["layers"]]
+
+
 def time_quant_matmul(engine, cfg) -> dict:
     """One decode step's worth of projections (7 per layer, every layer's
     own weights, so the weights stream from memory as on the path) at M =
@@ -922,45 +1193,13 @@ def time_quant_matmul(engine, cfg) -> dict:
     loop, which the wrapper's host work paces once the kernel is short;
     ``kernel_us`` splits a projection's call between its kernels.
     ``at_m16`` times the same at M = 16, the split-K kernel's other tile
-    (BM 16), against ``torch.matmul`` and its own bound."""
-    from repro_torch.kernels import ops
+    (BM 16), and ``at_m176`` at M = MAX_CONTEXT, the prefill bucket's
+    one-pass route, each against ``torch.matmul`` and its own bound."""
     from repro_torch.kernels import quant_matmul as qm
-    dev = engine.device
-    qws = [[lay[a][b]["w"] for a, b in PROJECTION_NAMES]
-           for lay in engine.params["layers"]]
+    qws = _projections(engine)
     n_layers = len(qws)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    wd = [[ops.dequantize_weight(qw, torch.bfloat16) for qw in row]
-          for row in qws]
-
-    def inputs(m):
-        return {qw.k: torch.randn((m, qw.k), generator=gen,
-                                  device=dev).to(torch.bfloat16)
-                for qw in qws[0]}
-
-    def kernel(xs):
-        def run():
-            for row in qws:
-                for qw in row:
-                    qm.quant_matmul(xs[qw.k], qw.packed, qw.scale, qw.zmin,
-                                    bits=qw.bits, group_size=qw.group_size)
-        return run
-
-    def library(xs):
-        def run():
-            for row in wd:
-                for w in row:
-                    torch.matmul(xs[w.shape[0]], w)
-        return run
-
-    def layer_bound(m):
-        nbytes = flops = 0
-        for qw in qws[0]:
-            nbytes += qw.nbytes() + m * qw.k * 2 + m * qw.n * 2
-            flops += 2 * m * qw.k * qw.n
-        return bound(nbytes, flops)
-
-    xs = inputs(SLOTS)
+    gen = torch.Generator(device=engine.device).manual_seed(SEED + 5)
+    main, xs, kernel = quant_matmul_layer(qws, SLOTS, gen)
 
     def plain():
         for row in qws:
@@ -978,26 +1217,28 @@ def time_quant_matmul(engine, cfg) -> dict:
                       "ms": graph_time(one(qw)),
                       "kernel_us": kernel_split_us(one(qw))}
                 for lab, qw in zip(LABELS, qws[0])}
-    b_ms, b_by = layer_bound(SLOTS)
-    x16 = inputs(16)
-    b16_ms, b16_by = layer_bound(16)
-    return {"ms": graph_time(kernel(xs), reps=2, iters=20) / n_layers,
-            "eager_ms": cuda_time(kernel(xs), 20) / n_layers,
+    at = {m: quant_matmul_layer(qws, m, gen, reps=1 if m > 16 else 2,
+                                iters=10 if m > 16 else 20)[0]
+          for m in (16, MAX_CONTEXT)}
+    return {**main,
+            "eager_ms": cuda_time(kernel, 20) / n_layers,
             "plain_ms": cuda_time(plain, 3, warmup=1) / n_layers,
-            "library_ms": graph_time(library(xs), reps=2, iters=20)
-            / n_layers,
-            "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"one layer's 7 projections at M={SLOTS}, bf16 x, "
                      f"lq4w (K,N) as in per_projection; timed over all "
                      f"{n_layers} layers' own weights",
             "per_projection_hot_l2": per_proj,
-            "at_m16": {
-                "ms": graph_time(kernel(x16), reps=2, iters=20) / n_layers,
-                "library_ms": graph_time(library(x16), reps=2, iters=20)
-                / n_layers,
-                "bound_ms": b16_ms, "bound_by": b16_by,
-                "plans": {lab: list(qm.plan(16, qw.k, qw.n, qw.bits))
-                          for lab, qw in zip(LABELS, qws[0])}}}
+            "at_m16": {**at[16], "plans": {
+                lab: list(qm.plan(16, qw.k, qw.n, qw.bits))
+                for lab, qw in zip(LABELS, qws[0])}},
+            "at_m176": at[MAX_CONTEXT]}
+
+
+def time_prefill_quant_matmul(engine) -> dict:
+    """``quant_matmul_layer`` at M = MAX_CONTEXT over another scheme's
+    weights (lq8: 8-bit codes)."""
+    gen = torch.Generator(device=engine.device).manual_seed(SEED + 12)
+    return quant_matmul_layer(_projections(engine), MAX_CONTEXT, gen,
+                              reps=1, iters=10)[0]
 
 
 def time_paged_attention(dev) -> dict:
@@ -1109,7 +1350,13 @@ def time_act_quant(dev) -> dict:
                      "eager_ms": cuda_time(kernel, 200),
                      "plain_ms": cuda_time(plain, 50),
                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    one = torch.zeros(1, device=dev)
     return {**out[2], "eight_bit": out[8],
+            "per_call_ms": out[2]["ms"] / len(xs),
+            # what any kernel node of a graph costs: a one-element in-place
+            # add, 112 nodes a graph (a decode step's act_quant calls)
+            "kernel_node_floor_ms": graph_time(lambda: one.add_(1),
+                                               reps=112, iters=50),
             "shape": f"one layer's 7 calls at M={SLOTS}, bf16 x, K 6x2048 "
                      f"+ 1x8192, 2 bits (eight_bit: the same at 8 bits)",
             "library": "none: no single PyTorch call quantizes per region"}
@@ -1124,7 +1371,9 @@ def time_lut_matmul(engine) -> dict:
     an eager loop, which the wrapper's host work paces once the kernel is
     short; ``kernel_us`` splits a projection's call between its kernels.
     ``at_m16`` times the same at M = 16 and ``four_bit`` with 4-bit codes
-    (lq4_lut), each against the library call and its own bound.  The
+    (lq4_lut), ``at_m176`` and ``at_m176_four_bit`` at M = MAX_CONTEXT,
+    the prefill bucket's one-pass route, each against the library call and
+    its own bound.  The
     library call is torch.matmul of the dequantized activations and the
     f32 weights, TF32 off."""
     from repro_torch.core import packing
@@ -1176,15 +1425,16 @@ def time_lut_matmul(engine) -> dict:
         return {lab: list(lm.plan(m, k, n, bits))
                 for lab, (k, n) in zip(LABELS, PROJECTIONS)}
 
-    def timed(m, bits):
+    def timed(m, bits, reps=2, iters=10):
         acts = inputs(m, bits)
         b_ms, b_by = layer_bound(m, bits)
-        return {"ms": graph_time(kernel(acts, bits), reps=2, iters=10)
-                / n_layers,
-                "library_ms": graph_time(library(acts, bits), reps=2,
-                                         iters=10) / n_layers,
-                "bound_ms": b_ms, "bound_by": b_by,
-                "plans": plans(m, bits)}
+        out = {"ms": graph_time(kernel(acts, bits), reps, iters) / n_layers,
+               "library_ms": graph_time(library(acts, bits), reps, iters)
+               / n_layers,
+               "bound_ms": b_ms, "bound_by": b_by}
+        if m > lm.DECODE_M:         # the one-pass kernel takes no plan
+            return {**out, "route": "one-pass"}
+        return {**out, "route": "split-K", "plans": plans(m, bits)}
 
     acts = inputs(SLOTS, 2)
 
@@ -1218,12 +1468,17 @@ def time_lut_matmul(engine) -> dict:
             "plans": plans(SLOTS, 2),
             "per_projection_hot_l2": per_proj,
             "at_m16": timed(16, 2),
-            "four_bit": timed(SLOTS, 4)}
+            "four_bit": timed(SLOTS, 4),
+            "at_m176": timed(MAX_CONTEXT, 2, reps=1, iters=5),
+            "at_m176_four_bit": timed(MAX_CONTEXT, 4, reps=1, iters=5)}
 
 
 def phase_timing(serves, dev) -> dict:
     lq4w = serves["lq4w"]
-    t = {"quant_matmul": time_quant_matmul(lq4w["engine"], lq4w["cfg"]),
+    t = {"quant_matmul": {
+            **time_quant_matmul(lq4w["engine"], lq4w["cfg"]),
+            "at_m176_lq8": time_prefill_quant_matmul(
+                serves["lq8"]["engine"])},
          "paged_attention": time_paged_attention(dev),
          "act_quant": time_act_quant(dev),
          "lut_matmul": time_lut_matmul(serves["lq2_lut"]["engine"])}

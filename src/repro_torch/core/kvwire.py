@@ -11,7 +11,9 @@ page that padded table entries and inactive slots read and write.
 
 Unlike the JAX functions, the writers here (``update_quant_kv``,
 ``scatter_tokens``, ``scatter_prefill``) update the cache in place, which
-keeps one copy of the pool on the device; they also return it.
+keeps one copy of the pool on the device; they also return it.  The
+engine's captured CUDA graphs hold the pool's page addresses, so a writer
+must never give a pool leaf new storage.
 """
 from __future__ import annotations
 

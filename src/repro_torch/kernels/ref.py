@@ -119,7 +119,10 @@ def masked_attention(q, k, v, pos, *, block: int = ATTN_BLOCK):
 def _attend_rows(q, k, v, pos, q0: int, block: int):
     """Rows ``q0 .. q0 + Lq`` of :func:`masked_attention`."""
     b, lq, _, _, d = q.shape
-    posb = torch.as_tensor(pos, device=q.device).expand(b)
+    # an int position is filled on the device rather than copied from the
+    # host: a captured prefill may make no host copy
+    posb = (torch.full((b,), pos, device=q.device) if isinstance(pos, int)
+            else torch.as_tensor(pos, device=q.device).expand(b))
     qpos = posb[:, None] + q0 + torch.arange(lq, device=q.device)  # (B, Lq)
     qf = q.to(torch.float32)
     m = l = acc = None

@@ -14,7 +14,9 @@ keeps a CPU run short.  ``--scheme lq8`` (or any ``lq{b}``) and
 ``lq2_lut``/``lq4_lut`` quantize activations at run time, the paper's
 forward; ``--a-bits N`` sets their bits on any scheme.  Flags of the JAX
 launcher that are not ported fail with the ROADMAP.md item that covers
-them.
+them.  The last lines give each kernel's launch count and, as the JAX
+launcher does, the decode step's compilations: on the card its captured
+CUDA graphs (1 == no per-step recapture), on the CPU 0.
 """
 from __future__ import annotations
 
@@ -145,6 +147,9 @@ def main(argv=None) -> dict:
     launches = {name: fn.launches for name, fn in kernels.items()}
     print("kernel launches: " + ", ".join(f"{n} {c}"
                                           for n, c in launches.items()))
+    note = ("1 == no per-step recapture" if dev.type == "cuda"
+            else "on the CPU the step runs eagerly: nothing is captured")
+    print(f"decode compilations: {s['decode_compilations']} ({note})")
     print("sample:", server.output(rids[0])[:16])
     return {"tokens": toks, "seconds": dt, "stats": s, "launches": launches,
             "outputs": [server.output(r) for r in rids]}

@@ -158,11 +158,18 @@ def prefill(params, cfg: ModelConfig, tokens, cache, *,
     cache.  Returns (logits (B, 1, V) f32, cache).  ``logits_pos`` selects
     which position's logits to return instead of the last (right-padded
     prefill buckets read their true last token; causal masking keeps
-    earlier positions independent of the pad tail)."""
+    earlier positions independent of the pad tail): an int, or a
+    one-element index tensor on the tokens' device, which one captured
+    prefill reads for every prompt length."""
     x = layers.embed_apply(params["embed"], tokens).to(cfg.activation_dtype)
     for p, c in zip(params["layers"], cache):
         x = block_apply(p, x, cfg, policy=policy, cache=c)
-    x = x[:, -1:] if logits_pos is None else x[:, logits_pos:logits_pos + 1]
+    if logits_pos is None:
+        x = x[:, -1:]
+    elif isinstance(logits_pos, torch.Tensor):
+        x = x.index_select(1, logits_pos.reshape(1))
+    else:
+        x = x[:, logits_pos:logits_pos + 1]
     return _logits(params, cfg, x), cache
 
 

@@ -64,5 +64,6 @@ class Server:
     def stats(self) -> dict:
         s = self.scheduler.stats()
         s["pool_bytes"] = self.pool.nbytes()
+        s["decode_compilations"] = self.engine.compilations(self.pool)
         s["attention_mode"] = self.engine.attention_mode
         return s

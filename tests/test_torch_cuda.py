@@ -15,6 +15,9 @@ unit-scale values, well inside 1e-5, and its serve-path, long-context and
 odd-width cases are held to ``paged_attention.error_bound``.  act_quant
 must give the plain version's bytes exactly; lut_matmul is held to
 ``lut_matmul.error_bound`` (f32 summation order).  TF32 is off.
+
+The engine's captured decode step and prefill bucket must give the bytes
+of the same bodies issued eagerly on the card, with exact launch counts.
 """
 import numpy as np
 import pytest
@@ -452,3 +455,216 @@ def test_new_kernels_refuse_what_they_do_not_take():
         lm.lut_matmul(a[0], a[1], a[2].cpu(), w, bits=2, group_size=128)
     with pytest.raises(ValueError):
         lm.lut_matmul(*a, w, bits=8, group_size=128)
+
+
+# ---------------------------------------------------------------------------
+# the engine's captured steps
+# ---------------------------------------------------------------------------
+
+def _engine_case(scheme, fused, *, n_pages=7):
+    """A small bf16 decoder (every K a multiple of 128, so act_quant and the
+    packed projections run at every layer) on the card, 4-bit pages of
+    group 16, 2 slots of page 4 over a 32-token bucket; 6 allocatable
+    pages cannot hold two 19-token requests, so the later one is
+    preempted and re-prefilled."""
+    from repro_torch.models import transformer
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.serve.engine import EngineConfig, PagedConfig
+    dev = _card()
+    cfg = ModelConfig(name="t128", family="dense", n_layers=2, d_model=128,
+                      vocab_size=256, n_heads=4, n_kv_heads=2, head_dim=32,
+                      d_ff=256, dtype="bfloat16")
+    params = transformer.init_params(cfg, 0, dev)
+    ecfg = EngineConfig(max_len=32, kv_bits=4, kv_group=16,
+                        weight_scheme=scheme, fused_attention=fused)
+    pcfg = PagedConfig(max_slots=2, page_size=4, n_pages=n_pages,
+                       max_context=32)
+    return cfg, params, ecfg, pcfg, dev
+
+
+def _recording_engine(cfg, params, ecfg, pcfg, dev, *, eager=False):
+    """A PagedEngine that keeps a copy of every step's logits and greedy
+    tokens; ``eager`` runs each step's body operation by operation instead
+    of replaying its graph."""
+    from repro_torch.serve.engine import PagedEngine
+
+    class Recording(PagedEngine):
+        def _run(self, kind, pool):
+            if eager:
+                self._run_eager(kind, pool)
+            else:
+                super()._run(kind, pool)
+            self.log.append((kind, self._io.logits[kind].clone(),
+                             self._io.greedy[kind].clone()))
+
+    eng = Recording(cfg, params, ecfg, pcfg, device=dev)
+    eng.log = []
+    return eng
+
+
+_PROMPTS = [[5, 77, 3, 9, 250], [1, 2, 3, 4, 5, 6], [9] * 7]
+
+
+def _serve(engine, prompts=_PROMPTS, max_new=(14, 14, 9), srv=None):
+    """Staggered arrivals through a Server over ``engine`` (or ``srv``) ->
+    (outputs, the server)."""
+    from repro_torch.serve.server import RequestParams, Server
+    srv = srv or Server(engine.cfg, None, engine.ecfg, engine.pcfg,
+                        engine=engine)
+    rids = []
+    for p, n in zip(prompts, max_new):
+        rids.append(srv.submit(p, RequestParams(max_new_tokens=n)))
+        srv.step()
+        srv.step()
+    outs = srv.drain(max_steps=500)
+    return [outs[r] for r in rids], srv
+
+
+def _launches():
+    from repro_torch import kernels
+    return {n: fn.launches for n, fn in kernels.wrappers().items()}
+
+
+def _want_launches(scheme, n_layers, st):
+    """Launches of each kernel on a scheme's path: 7 projections a layer in
+    every prefill and decode step, one paged attention a layer and decode
+    step on the fused path."""
+    proj = 7 * n_layers * (st["prefills"] + st["steps"])
+    lut = scheme.endswith("_lut")
+    act = lut or not scheme.endswith("w")
+    return {"quant_matmul": 0 if lut else proj,
+            "paged_attention": n_layers * st["steps"]
+            if st["attention_mode"] == "fused-cuda" else 0,
+            "act_quant": proj if act else 0,
+            "lut_matmul": proj if lut else 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,fused", [("lq4w", True), ("lq4w", False),
+                                          ("lq8", True), ("lq2_lut", True)])
+def test_graphed_steps_give_the_eager_bytes(scheme, fused):
+    """The same staggered run with a preemption, through the captured steps
+    and through the same bodies issued eagerly: identical tokens and
+    identical logit bytes at every prefill and decode step, and exact
+    launch counts in both (a replay adds what its capture launched)."""
+    case = _engine_case(scheme, fused)
+    runs = []
+    for eager in (False, True):
+        eng = _recording_engine(*case, eager=eager)
+        before = _launches()
+        outs, srv = _serve(eng)
+        st = srv.stats()
+        added = {n: c - before[n] for n, c in _launches().items()}
+        assert added == _want_launches(scheme, case[0].n_layers, st)
+        assert st["preemptions"] > 0
+        assert st["decode_compilations"] == (0 if eager else 1)
+        runs.append((outs, eng.log))
+    (g_out, g_log), (e_out, e_log) = runs
+    assert g_out == e_out
+    assert [k for k, *_ in g_log] == [k for k, *_ in e_log]
+    for (kind, gl, gt), (_, el, et) in zip(g_log, e_log):
+        assert torch.equal(gl, el), kind
+        assert torch.equal(gt, et), kind
+
+
+@pytest.mark.cuda
+def test_two_servers_on_one_engine_keep_their_own_graphs():
+    """Each Server's pool gets its own captures (a graph holds its pool's
+    page addresses) and both serve the eager tokens.  Every graph of the
+    engine draws from one pool of the allocator, so capturing for the
+    second Server reserves no new device memory beyond a segment's
+    rounding."""
+    from repro_torch.serve.server import Server
+    case = _engine_case("lq4w", True, n_pages=24)
+    want, _ = _serve(_recording_engine(*case, eager=True))
+    eng = _recording_engine(*case)
+    first, srv1 = _serve(eng)
+    srv2 = Server(eng.cfg, None, eng.ecfg, eng.pcfg, engine=eng)
+    torch.cuda.synchronize()
+    reserved = torch.cuda.memory_reserved()
+    second, _ = _serve(eng, srv=srv2)
+    assert first == second == want
+    for srv in (srv1, srv2):
+        assert srv.stats()["decode_compilations"] == 1
+        assert eng.compilations(srv.pool, "prefill") == 1
+        assert srv.stats()["preemptions"] == 0
+    assert eng.decode_compilations == 1
+    graphs = [g for srv in (srv1, srv2)
+              for g in eng._graphs[srv.pool].values()]
+    assert len(graphs) == 4
+    assert len({g.graph.pool() for g in graphs}) == 1
+    assert torch.cuda.memory_reserved() <= reserved + (2 << 20)
+
+
+@pytest.mark.cuda
+def test_launch_counts_are_exact_after_many_replays():
+    """N decode steps on one pool: one capture, N - 1 replays, and each
+    wrapper's count equals N times a step's launches."""
+    from repro_torch.serve.server import RequestParams, Server
+    cfg, params, ecfg, pcfg, dev = _engine_case("lq8", True, n_pages=24)
+    eng = _recording_engine(cfg, params, ecfg, pcfg, dev)
+    srv = Server(cfg, None, ecfg, pcfg, engine=eng)
+    srv.submit(_PROMPTS[0], RequestParams(max_new_tokens=2))
+    srv.drain()
+    before = _launches()
+    n = 12
+    srv.submit(_PROMPTS[1], RequestParams(max_new_tokens=n + 1))
+    srv.drain()
+    added = {k: c - before[k] for k, c in _launches().items()}
+    proj = 7 * cfg.n_layers * (1 + n)
+    assert added == {"quant_matmul": proj, "paged_attention":
+                     cfg.n_layers * n, "act_quant": proj, "lut_matmul": 0}
+    assert srv.stats()["decode_compilations"] == 1
+
+
+@pytest.mark.cuda
+def test_decode_compilations_count_every_capture():
+    """The count is of captures, not of graphs held: a pool whose decode
+    graph is dropped captures again on its next step and reads 2, and
+    the tokens stay the eager ones."""
+    from repro_torch.serve.server import RequestParams, Server
+    case = _engine_case("lq4w", True, n_pages=24)
+    outs = []
+    for eager in (True, False):
+        eng = _recording_engine(*case, eager=eager)
+        srv = Server(eng.cfg, None, eng.ecfg, eng.pcfg, engine=eng)
+        rid = srv.submit(_PROMPTS[0], RequestParams(max_new_tokens=14))
+        for _ in range(4):
+            srv.step()
+        if not eager:
+            assert srv.stats()["decode_compilations"] == 1
+            del eng._graphs[srv.pool]["decode"]
+        srv.drain()
+        outs.append(srv.output(rid))
+    assert outs[0] == outs[1]
+    assert srv.stats()["decode_compilations"] == 2
+    assert eng.decode_compilations == 2
+    assert eng.compilations(srv.pool, "prefill") == 1
+
+
+@pytest.mark.cuda
+def test_a_capture_that_syncs_with_the_host_raises(monkeypatch):
+    """A step that reads a value back to the host cannot be captured: the
+    engine raises, keeps no graph and does not go on eagerly."""
+    from repro_torch.serve import engine as engine_mod
+    cfg, params, ecfg, pcfg, dev = _engine_case("lq4w", True, n_pages=24)
+    eng = _recording_engine(cfg, params, ecfg, pcfg, dev)
+    pool = eng.new_pool()
+    assert pool.alloc(0, 2)
+    eng.prefill_request(pool, _PROMPTS[0], pool.pages_of(0))
+    step = engine_mod.transformer.paged_decode_step
+
+    def syncing_step(*a, **kw):
+        logits, pages = step(*a, **kw)
+        float(logits.sum())                     # a host read
+        return logits, pages
+
+    monkeypatch.setattr(engine_mod.transformer, "paged_decode_step",
+                        syncing_step)
+    table = np.zeros((2, pcfg.pages_per_slot), np.int32)
+    table[0, :2] = pool.pages_of(0)
+    args = (pool, np.array([7, 0]), table, np.array([5, 0]))
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            eng.decode_step_batch(*args)
+        assert eng.decode_compilations == 0
